@@ -1,0 +1,115 @@
+"""End-to-end generation: tokens -> T5 -> consistency UNet -> VAE decode ->
+HiFi-GAN -> waveform, 1-NFE by default.
+
+Multi-step consistency sampling re-noises at the coarser num_steps
+schedule's unique timesteps [1:] and queries again; `guidance_post > 1`
+adds external classifier-free guidance on the student (the batch is doubled
+inside each query, unconditional half first).
+
+Random draws: the initial latent noise and one `eps` per refinement step
+come either from the caller (`noise=`, `eps=`, standard normal tensors)
+or from `torch.randn` with the caller's `generator`.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional, Sequence
+
+import torch
+
+from consistencytta_torch.models.pipeline import Pipeline
+from consistencytta_torch.ops.schedulers import make_ddim_schedule, make_heun_schedule
+
+
+@dataclass(frozen=True)
+class GenerateConfig:
+    num_steps: int = 1
+    guidance_post: float = 1.0  # > 1 enables external CFG on the student
+    use_ema: bool = True  # query student_ema (else student_target)
+    use_edm: bool = True  # Heun/EDM schedule (else DDIM)
+    init_steps: int = 18  # the first query uses the 18-step schedule
+    truncate_seconds: Optional[float] = 10.0
+    use_karras: bool = False
+    decode_chunk: Optional[int] = None
+    use_ema_decoder: Optional[bool] = None  # None follows use_ema
+
+
+def build_generate_fn(pipeline: Pipeline, gen: GenerateConfig = GenerateConfig()) -> Callable:
+    """Returns generate(ids, mask, uncond_ids, uncond_mask, guidance,
+    generator=None, noise=None, eps=None) -> waveform [B, samples] float32."""
+    sched_cfg = pipeline.config.scheduler
+    use_cfg_post = gen.guidance_post > 1.0
+    if gen.use_edm:
+        sched_init = make_heun_schedule(sched_cfg, gen.init_steps, gen.use_karras)
+        sched_multi = (make_heun_schedule(sched_cfg, gen.num_steps, gen.use_karras)
+                       if gen.num_steps > 1 else None)
+    else:
+        sched_init = make_ddim_schedule(sched_cfg, gen.init_steps)
+        sched_multi = (make_ddim_schedule(sched_cfg, gen.num_steps)
+                       if gen.num_steps > 1 else None)
+    role = "student_ema" if gen.use_ema else "student_target"
+    ema_dec = gen.use_ema if gen.use_ema_decoder is None else gen.use_ema_decoder
+    dev = pipeline.device
+
+    def calc_zhat_0(z_n, t, level, text, text_mask, guidance):
+        if use_cfg_post:
+            z_in, t_in, level_in, g_in = (
+                torch.cat([a, a]) for a in (z_n, t, level, guidance)
+            )
+        else:
+            z_in, t_in, level_in, g_in = z_n, t, level, guidance
+        z_scaled = sched_init.scale_model_input(z_in, level_in)
+        zhat_0 = pipeline.query_student(z_scaled, t_in, text, text_mask, g_in, role)
+        if use_cfg_post:
+            uncond, cond = zhat_0.chunk(2)
+            zhat_0 = (1.0 - gen.guidance_post) * uncond + gen.guidance_post * cond
+        return zhat_0
+
+    def full(b, value, dtype):
+        return torch.full((b,), value, dtype=dtype, device=dev)
+
+    def levels(sched, i, b):
+        if gen.use_edm:
+            t = full(b, float(sched.timesteps[i]), torch.float32)
+            return t, full(b, float(sched.sigmas[i]), torch.float32)
+        t = full(b, int(sched.timesteps[i]), torch.int32)
+        return t, t
+
+    @torch.no_grad()
+    def generate(ids, mask, uncond_ids, uncond_mask, guidance,
+                 generator: Optional[torch.Generator] = None,
+                 noise: Optional[torch.Tensor] = None,
+                 eps: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        b = ids.shape[0]
+        guidance = torch.as_tensor(guidance, dtype=torch.float32, device=dev)
+        guidance = guidance.reshape(-1).expand(b)
+        if use_cfg_post:
+            text, text_mask, _, _ = pipeline.encode_text_cfg(ids, mask, uncond_ids, uncond_mask)
+        else:
+            text = pipeline.encode_text(ids, mask)
+            text_mask = torch.as_tensor(mask, device=dev)
+
+        shape = pipeline.latent_shape(b)
+        if noise is None:
+            noise = torch.randn(shape, generator=generator, device=dev)
+        z_n = noise.to(dev, torch.float32) * sched_init.init_noise_sigma
+        t0, level0 = levels(sched_init, 0, b)
+        zhat_0 = calc_zhat_0(z_n, t0, level0, text, text_mask, guidance)
+
+        for i in range(1, gen.num_steps):
+            t_i, level_i = levels(sched_multi, i, b)
+            if eps is not None:
+                e = eps[i - 1].to(dev, torch.float32)
+            else:
+                e = torch.randn(shape, generator=generator, device=dev)
+            z_n = sched_multi.add_noise(zhat_0, e, level_i)
+            zhat_0 = calc_zhat_0(z_n, t_i, level_i, text, text_mask, guidance)
+
+        wav = pipeline.decode_latents(zhat_0, chunk=gen.decode_chunk,
+                                      use_ema_decoder=ema_dec)
+        if gen.truncate_seconds is not None:
+            wav = wav[:, : int(pipeline.config.sample_rate * gen.truncate_seconds)]
+        return wav
+
+    return generate

@@ -53,6 +53,10 @@ def pytest_configure(config):
         "markers",
         "slow: compile-heavy tests (run with -m slow; quick tier skips them)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the PyTorch port's kernels); skips without one",
+    )
 
 
 # Tiering: the quick tier is `pytest -m "not slow"`; the default run

@@ -1,0 +1,61 @@
+"""Rules the PyTorch port keeps: it imports nothing of JAX or of the JAX
+package, and a request for the card where there is none raises instead of
+falling back to the CPU."""
+
+import ast
+import os
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "consistencytta_tpu")
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "consistencytta_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_no_jax():
+    files = _port_files()
+    assert len(files) > 10 and os.path.exists(files[0])
+    bad = {}
+    for path in files:
+        roots = set(_imported_roots(path))
+        with open(path) as f:
+            text = f.read()
+        hits = sorted(roots & set(FORBIDDEN))
+        # also catch imports the AST walk cannot see (exec'd or dynamic)
+        hits += [w for w in ("import jax", "from jax", "import flax", "from flax",
+                             "import consistencytta_tpu", "from consistencytta_tpu",
+                             "import_module", "__import__")
+                 if w in text]
+        if hits:
+            bad[os.path.relpath(path, REPO)] = hits
+    assert not bad, bad
+
+
+def test_cuda_request_without_card_raises(monkeypatch):
+    from consistencytta_torch.configs import PipelineConfig
+    from consistencytta_torch.models.pipeline import Pipeline
+    from consistencytta_torch.utils import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Pipeline.create(PipelineConfig.tiny(), device="cuda")
+    assert resolve_device("cpu").type == "cpu"
