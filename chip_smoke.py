@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `consistencytta_torch/csrc/` (one nvcc per
-source, in parallel, into `build/`), then runs four phases, each printing
+source, in parallel, into `build/`), then runs five phases, each printing
 JSON lines:
 
   env      card name and power limit (nvidia-smi), torch / CUDA versions,
@@ -17,7 +17,15 @@ JSON lines:
            CUDA-event times of the kernel, the plain version,
            one PyTorch library call computing the same function (SDPA for
            attention; none for the MRF level) and the bound (the larger of
-           bytes over 3.35 TB/s and operations over 989 TFLOP/s);
+           bytes over 3.35 TB/s and operations over 989 TFLOP/s). The STFT
+           magnitude (float32, B = 8 and 32 ten-second clips) is held to
+           float32 grade, 1e-5 of the largest output, against planted
+           single-pass bf16 and TF32 products, zero padding and a dropped
+           window tail; its library call is torch.stft and its operations
+           are counted at 165 TFLOP/s, a third of the TF32 rate (three TF32
+           passes are the fastest arithmetic of that accuracy). The
+           standalone dilated conv runs at B = 32, C = 64, L = 81936 for its
+           six (k, d) pairs, beside F.conv1d;
   main     the main path: Pipeline.create at the full PipelineConfig
            (random weights from a seed, bf16) and build_generate_fn(num_steps=1)
            answering hash-tokenized prompts at batch 1 and batch 32, with the
@@ -26,6 +34,19 @@ JSON lines:
            weights run in fp32 on the CPU through the plain versions; clips/s
            and latency (median, least and largest of 10 timed calls per batch
            size), peak memory and per-stage times;
+  train    the training path: Pipeline.create(..., training=True) with the
+           teacher, an 18-step Heun schedule, seeded synthetic 10-s
+           waveforms and hash-tokenized prompts; one warm-up and three timed
+           stage-2 optimizer steps at micro-batch 8 (constant learning rate
+           1e-4, so that the first steps move the weights), three more
+           without recomputing the student's forward, and one validation
+           step at batch 2, with the launch counters set to 0 before and
+           read after and compared with the counts the code implies; finite
+           losses; the student and both EMAs moved as their decays imply;
+           the forward loss of a batch-2 micro-batch with given draws
+           against the same weights in fp32 on the CPU through the plain
+           versions; seconds per step, samples/s, peak memory and the time
+           of each part of a step;
   kernels  one line naming every kernel with its launches, error and times.
 
 Then the nvidia-smi line, then the last line
@@ -44,12 +65,19 @@ import sys
 import time
 
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_FLOPS_3XTF32 = 495e12 / 3  # float32-grade products as three TF32 passes
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
 BATCH = 32
 TEXT_LEN = 64
 HEAD_WIDTH = 51  # the UNet's attention heads (inner dims 255/510/1020)
 TOL_L2 = 1e-2  # relative L2 error allowed for every kernel against its plain version
 TIMED_CALLS = 10  # timed generate calls per batch size, after one warm-up
+TOL_STFT = 1e-5  # largest STFT error allowed, as a share of the largest magnitude
+TRAIN_BATCH = 8  # micro-batch of the stage-2 steps
+TRAIN_STEPS = 3  # timed optimizer steps, after one warm-up
+TRAIN_LR = 1e-4  # constant: the default schedule's warm-up starts at 0
+HEUN_STEPS = 18
+TOL_TRAIN_LOSS = 0.05  # card (bf16, kernels) against CPU fp32, relative
 PROMPTS = [
     "a dog barks in the distance", "rain falls on a tin roof",
     "a crowd cheers at a stadium", "an engine idles then revs",
@@ -95,8 +123,8 @@ def spread(seconds) -> dict:
     return {"median": statistics.median(ms), "min": min(ms), "max": max(ms)}
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS):
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -116,8 +144,11 @@ def main() -> None:
         from consistencytta_torch.models.pipeline import Pipeline
         from consistencytta_torch.ops import _build
         from consistencytta_torch.ops import attention as att
-        from consistencytta_torch.ops import mrf
+        from consistencytta_torch.ops import dilated_conv as dconv
+        from consistencytta_torch.ops import mrf, schedulers, stft
         from consistencytta_torch.text.tokenizer import HashTokenizer, tokenize_with_uncond
+        from consistencytta_torch.training import step as tstep
+        from consistencytta_torch.training.optim import OptimizerConfig
     except ImportError as e:
         fail(f"the port's package is not beside this script ({e})", 3)
 
@@ -157,11 +188,13 @@ def main() -> None:
             and l2 <= TOL_L2
 
     def record(name, shape, got, want, tol_max, mutants, ms, plain_ms, lib_ms,
-               flops, nbytes, per_call, **extra):
+               flops, nbytes, per_call, weight=None, peak=PEAK_FLOPS, **extra):
         """Check got against want, and check that each mutant (the plain
         version with a planted fault: a wrong scale, a dropped tile, ...)
         fails the same tolerance, so that the tolerance can tell a broken
-        kernel from bf16 rounding at this shape."""
+        kernel from rounding at this shape. The kernel's summed times count
+        this shape `weight` times (default: its launches per main-path call)."""
+        weight = per_call if weight is None else weight
         err, scale, l2 = compare(got, want)
         ok = within(got, want, tol_max)
         caught = {}
@@ -169,7 +202,7 @@ def main() -> None:
             e, _, m_l2 = compare(bad, want)
             caught[fault] = {"max_abs_err": e, "rel_l2": m_l2,
                              "caught": not within(bad, want, tol_max)}
-        b_ms, b_by = bound(flops, nbytes)
+        b_ms, b_by = bound(flops, nbytes, peak)
         emit({"phase": "kernel", "name": name, "shape": shape, "max_abs_err": err,
               "max_abs_plain": scale, "tol_max_abs": tol_max * scale, "rel_l2": l2,
               "tol_rel_l2": TOL_L2, "ok": ok, "mutants": caught, "ms": ms,
@@ -183,14 +216,14 @@ def main() -> None:
             fail(f"{name} {shape}: the tolerance passes the planted faults {missed}")
         r = results.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                                       "library_ms": 0.0, "bound_ms": 0.0,
-                                      "flops": 0.0, "bytes": 0.0})
+                                      "flops": 0.0, "bytes": 0.0, "peak": peak})
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        if per_call:
+        if weight:
             for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
                            ("flops", flops), ("bytes", nbytes)):
-                r[key] += per_call * v
+                r[key] += weight * v
             r["library_ms"] = None if lib_ms is None or r["library_ms"] is None \
-                else r["library_ms"] + per_call * lib_ms
+                else r["library_ms"] + weight * lib_ms
 
     def launch(kernel, call):
         """call() once, checking that it launched `kernel` exactly once."""
@@ -277,6 +310,80 @@ def main() -> None:
                float(mrf.mrf_flops(b, c, length, ks, ds)), 2.0 * x.numel() * 2 + wbytes,
                per_call, plain_direct_ms=direct_ms, plain_phase_split_ms=split_ms)
         del x, ws, bs, got, want, tile, unzeroed, mutants
+    # K4: the mel frontend's STFT magnitude on 10-s clips, float32 in and out;
+    # once per train micro-batch (B = 8). The plain version is one float32
+    # matmul with TF32 off; the faults are that product in one low-precision
+    # pass, zero padding in place of reflect, and a window cut 64 samples short.
+    stft_cfg = PipelineConfig().stft
+    frontend = stft.MelFrontend(stft_cfg, device=dev)
+    cos_b, sin_b = frontend.cos_basis, frontend.sin_basis
+    win, hop, half = stft_cfg.filter_length, stft_cfg.hop_length, stft_cfg.filter_length // 2
+    hann = torch.hann_window(win, periodic=True, device=dev)
+    samples = int(PipelineConfig().sample_rate * 10.0)
+
+    def magnitude_tf32(w):
+        frames = stft.frame_signal(stft.reflect_pad(w, half), win, hop)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            re, im = torch.matmul(frames, torch.cat([cos_b, sin_b], 1)).split(cos_b.shape[1], -1)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        return torch.sqrt(re * re + im * im)
+
+    for b, per_call in ((TRAIN_BATCH, 1), (BATCH, 0)):
+        wav = (torch.randn(b, samples, device=dev, generator=gen) * 0.3).clamp(-1, 1)
+        kern = lambda: frontend.magnitude(wav)
+        plain = lambda w=wav, c=cos_b, s_=sin_b, pad=half: stft.stft_magnitude(w, c, s_, hop, pad)
+        lib = lambda: torch.stft(wav, win, hop, win, hann, center=True, pad_mode="reflect",
+                                 return_complex=True).abs().transpose(1, 2)
+        got, want = launch(stft.stft_magnitude_cuda, kern), plain()
+        lib_err = (lib() - want).abs().max().item()
+        if not lib_err <= 1e-4 * want.abs().max().item():
+            fail(f"torch.stft does not compute the STFT magnitude: max abs diff {lib_err}")
+        rounded = lambda t: t.bfloat16().float()
+        tail = torch.ones(win, 1, device=dev)
+        tail[-64:] = 0
+        mutants = {
+            "single_bf16_pass": plain(w=rounded(wav), c=rounded(cos_b), s_=rounded(sin_b)),
+            "single_tf32_pass": magnitude_tf32(wav),
+            "zero_padding": plain(w=F.pad(wav, (half, half)), pad=0),
+            "window_tail_dropped": plain(c=cos_b * tail, s_=sin_b * tail),
+        }
+        n_frames, n_bins = want.shape[1:]
+        record("stft_magnitude", f"B={b} T={samples} frames={n_frames} bins={n_bins}",
+               got, want, TOL_STFT, mutants,
+               cuda_ms(torch, kern, 3), cuda_ms(torch, plain, 3), cuda_ms(torch, lib, 3),
+               float(stft.stft_flops(b, n_frames, win, n_bins)),
+               4.0 * (wav.numel() + want.numel() + 2 * cos_b.numel()),
+               per_call, peak=PEAK_FLOPS_3XTF32, library_max_abs_diff=lib_err,
+               operations_rate="495 TFLOP/s TF32 dense / 3 passes")
+        del wav, got, want, mutants
+    # K5: the standalone dilated conv at the vocoder's C = 64 level; nothing
+    # dispatches it, so it has no launches on any path and its summed times
+    # are those of the six convs run once each.
+    b, c, length = BATCH, 64, 81936
+    x = (torch.randn(b, c, length, device=dev, generator=gen) * 0.5).bfloat16()
+    for kk, d in ((3, 3), (3, 5), (7, 3), (7, 5), (11, 3), (11, 5)):
+        w = (torch.randn(c, c, kk, device=dev, generator=gen) / (c * kk) ** 0.5).bfloat16()
+        p = d * (kk - 1) // 2
+        kern = lambda: dconv.dilated_conv1d(x, w, d, p)
+        plain = lambda: dconv.dilated_conv1d_plain(x, w, d, p)
+        got, want = launch(dconv.dilated_conv1d, kern), plain()
+        one_less = w.clone()
+        one_less[..., 0] = 0
+        p_off = (d + 1) * (kk - 1) // 2
+        mutants = {
+            "edges_not_zeroed": F.conv1d(F.pad(x, (p, p), mode="replicate"), w, dilation=d),
+            "one_tap_dropped": dconv.dilated_conv1d_plain(x, one_less, d, p),
+            "dilation_off_by_one": dconv.dilated_conv1d_plain(x, w, d + 1, p_off),
+        }
+        plain_ms = cuda_ms(torch, plain, 3)
+        record("dilated_conv1d", f"B={b} C={c} L={length} k={kk} d={d}", got, want, 2e-2,
+               mutants, cuda_ms(torch, kern, 3), plain_ms, plain_ms,
+               float(dconv.dilated_conv_flops(b, c, length, kk)),
+               2.0 * (2 * x.numel() + w.numel()), 0, weight=1)
+        del w, got, want, one_less, mutants
+    del x
     torch.cuda.empty_cache()
 
     # -- main path --------------------------------------------------------------
@@ -295,9 +402,20 @@ def main() -> None:
         g = torch.Generator(device=dev).manual_seed(seed)
         return (ids, mask, uids, umask), g
 
-    counters = (att.flash_mha_packed, att.flash_self_attention, mrf.fused_mrf_level)
-    for fn in counters:
-        fn.launches = 0
+    counters = {"flash_mha_packed": att.flash_mha_packed,
+                "flash_self_attention": att.flash_self_attention,
+                "fused_mrf_level": mrf.fused_mrf_level,
+                "stft_magnitude": stft.stft_magnitude_cuda,
+                "dilated_conv1d": dconv.dilated_conv1d}
+
+    def reset_counters():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counters():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    reset_counters()
     torch.cuda.reset_peak_memory_stats()
     calls = 0
     times = {}
@@ -315,9 +433,9 @@ def main() -> None:
             if wav.shape != (batch, n_samples) or not torch.isfinite(wav).all():
                 fail(f"batch-{batch} waveform shape {tuple(wav.shape)} or non-finite values")
     wav32 = wav
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = read_counters()
     expected = {"flash_mha_packed": 16 * calls, "flash_self_attention": calls,
-                "fused_mrf_level": 3 * calls}
+                "fused_mrf_level": 3 * calls, "stft_magnitude": 0, "dilated_conv1d": 0}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     if launches != expected:
         fail(f"launch counts {launches} != expected {expected}")
@@ -373,6 +491,199 @@ def main() -> None:
     if not rel_l2 <= ref_tol:
         fail(f"batch-1 clip differs from the fp32 CPU reference: rel L2 {rel_l2}")
 
+    # -- training path ------------------------------------------------------------
+    del pipe, generate, ref, student, z, emb, mel, wav, wav32, got, want
+    torch.cuda.empty_cache()
+    roles = ("student", "student_target", "student_ema", "teacher")
+    t0 = time.perf_counter()
+    tpipe = Pipeline.create(config, dtype=torch.bfloat16, device="cuda", seed=0,
+                            roles=roles, training=True)
+    torch.cuda.synchronize()
+    train_create_s = time.perf_counter() - t0
+    heun = schedulers.make_heun_schedule(config.scheduler, HEUN_STEPS)
+    state = tstep.TrainState.create(
+        tpipe, OptimizerConfig(learning_rate=TRAIN_LR, lr_scheduler_type="constant"))
+    step_cfg = tstep.ConsistencyStepConfig()
+    train_step = tstep.build_consistency_train_step(tpipe, heun, step_cfg)
+    step_no_remat = tstep.build_consistency_train_step(
+        tpipe, heun, tstep.ConsistencyStepConfig(remat_student=False))
+    validate = tstep.build_validation_step(tpipe, heun, step_cfg)
+
+    def train_batch(batch, seed):
+        """Seeded synthetic clips (a tone, its octave and noise) with prompts."""
+        g = torch.Generator(device=dev).manual_seed(1000 + seed)
+        t = torch.arange(n_samples, device=dev) / config.sample_rate
+        f0 = 110.0 * 2.0 ** (4.0 * torch.rand(batch, 1, device=dev, generator=g))
+        wav = 0.3 * torch.sin(2 * torch.pi * f0 * t) + 0.1 * torch.sin(4 * torch.pi * f0 * t) \
+            + 0.05 * torch.randn(batch, n_samples, device=dev, generator=g)
+        prompts = [PROMPTS[(seed + i) % len(PROMPTS)] for i in range(batch)]
+        ids, mask, uids, umask = tokenize_with_uncond(tok, prompts, TEXT_LEN)
+        return {"wav": wav, "ids": ids, "mask": mask, "uncond_ids": uids,
+                "uncond_mask": umask}, g
+
+    def weights():
+        return [m.conv_in.weight.detach().clone()
+                for m in (state.student, state.student_target, state.student_ema)]
+
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses = [], []
+    for i in range(1 + TRAIN_STEPS):  # the first step warms up
+        batch, g = train_batch(TRAIN_BATCH, i)
+        before = weights()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = train_step(state, batch, generator=g)
+        torch.cuda.synchronize()
+        if i:
+            step_s.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"].item())
+        if not metrics["loss_finite"]:
+            fail(f"train step {i}: non-finite loss or gradient")
+        # the student moved; each shadow moved to lerp(shadow, student, 1 - decay)
+        after = weights()
+        moved = [(x1 - x0).abs().max().item() for x0, x1 in zip(before, after)]
+        ulp = 4 * torch.finfo(torch.float32).eps * after[0].abs().max().item()
+        ema_err = [(torch.lerp(before[j], after[0], 1 - decay) - after[j]).abs().max().item()
+                   for j, decay in ((1, step_cfg.target_ema_decay), (2, step_cfg.ema_decay))]
+        if not (all(m > 0 for m in moved) and all(e <= ulp for e in ema_err)):
+            fail(f"train step {i}: moved {moved}, EMA errors {ema_err} (allowed {ulp})")
+    peak_train_gb = torch.cuda.max_memory_allocated() / 2**30
+    # the same steps without recomputing the student's forward in the backward
+    torch.cuda.reset_peak_memory_stats()
+    no_remat_s = []
+    for i in range(TRAIN_STEPS):
+        batch, g = train_batch(TRAIN_BATCH, 10 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step_no_remat(state, batch, generator=g)
+        torch.cuda.synchronize()
+        no_remat_s.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"].item())
+        if not metrics["loss_finite"]:
+            fail(f"train step {i} without recomputation: non-finite loss or gradient")
+    peak_no_remat_gb = torch.cuda.max_memory_allocated() / 2**30
+    vbatch, g = train_batch(2, 20)
+    t0 = time.perf_counter()
+    val = {k: v.item() for k, v in validate(state, vbatch, generator=g).items()}
+    torch.cuda.synchronize()
+    validate_s = time.perf_counter() - t0
+    train_launches = read_counters()
+    n_train_steps = 1 + 2 * TRAIN_STEPS
+    if state.step != n_train_steps:
+        fail(f"step count {state.step} after {n_train_steps} steps")
+    if not all(v == v and abs(v) != float("inf") for v in (*losses, *val.values())):
+        fail(f"non-finite loss: train {losses}, validation {val}")
+    # per step: the frontend and the encoder's attention once; 16 attention
+    # launches per UNet query, over two teacher queries, one target query,
+    # the student's forward and its recomputation in the backward pass.
+    # Validation: two teacher queries and two target queries on the first
+    # interval, two teacher queries on each later one, one for the last step.
+    unet_queries = (1 + TRAIN_STEPS) * 5 + TRAIN_STEPS * 4 + (4 + 2 * (HEUN_STEPS - 2) + 1)
+    calls_t = n_train_steps + 1
+    train_expected = {"flash_mha_packed": 16 * unet_queries, "flash_self_attention": calls_t,
+                      "fused_mrf_level": 0, "stft_magnitude": calls_t, "dilated_conv1d": 0}
+    if train_launches != train_expected:
+        fail(f"train launch counts {train_launches} != expected {train_expected}")
+
+    # the parts of one step at the micro-batch, one by one (outside the counted run)
+    from torch.utils.checkpoint import checkpoint
+
+    from consistencytta_torch.training.ema import ema_update
+
+    batch, g = train_batch(TRAIN_BATCH, 30)
+    ids_t = [batch[k] for k in ("ids", "mask", "uncond_ids", "uncond_mask")]
+    with torch.no_grad():
+        mel_img = tpipe.frontend.wav_to_mel_image(batch["wav"], config.target_mel_frames)
+        noise8 = torch.randn(tpipe.latent_shape(TRAIN_BATCH), device=dev, generator=g)
+        z0 = tpipe.vae.encode_to_latent(mel_img, noise8)
+        text_cf, mask_cf, text_c, mask_c = tpipe.encode_text_cfg(*ids_t)
+        w8 = torch.full((TRAIN_BATCH,), 3.0, device=dev)
+        t_a, t_b, s_a, s_b = heun.interval(5, TRAIN_BATCH, dev)
+        z_in = heun.add_noise(z0, noise8, s_a)
+        teacher_fn = lambda zs, t, sigma: tpipe.query_teacher_cfg(zs, t, text_cf, mask_cf, w8)
+        z_scaled = heun.scale_model_input(z_in, s_a)
+        parts = {
+            "frontend_ms": cuda_ms(torch, lambda: tpipe.frontend.wav_to_mel_image(
+                batch["wav"], config.target_mel_frames), 3),
+            "encoder_ms": cuda_ms(torch, lambda: tpipe.vae.encode_to_latent(mel_img, noise8), 2),
+            "t5_ms": cuda_ms(torch, lambda: tpipe.encode_text_cfg(*ids_t), 3),
+            "teacher_heun_interval_ms": cuda_ms(
+                torch, lambda: heun.heun_pair(z_in, s_a, s_b, teacher_fn, t_a, t_b), 2),
+            "target_ms": cuda_ms(torch, lambda: tpipe.query_unet(
+                state.student_target, z_scaled, t_a, text_c, mask_c, w8), 2),
+        }
+
+    def student_forward_backward():
+        state.optimizer.zero_grad(set_to_none=True)
+        pred = checkpoint(tpipe.query_unet, state.student, z_scaled, t_a, text_c, mask_c, w8,
+                          use_reentrant=False)
+        loss = tstep.mse_instance(pred, z0).mean()
+        loss.backward()
+        return loss.detach()
+
+    parts["student_forward_backward_ms"] = cuda_ms(torch, student_forward_backward, 2)
+    update_ms = []
+    for _ in range(3):
+        loss = student_forward_backward()
+        update_ms.append(cuda_ms(torch, lambda: (
+            tstep.guarded_update(state, loss),
+            ema_update(state.student_target, state.student, step_cfg.target_ema_decay),
+            ema_update(state.student_ema, state.student, step_cfg.ema_decay)), 1, warmup=0))
+    parts["optimizer_and_ema_ms"] = statistics.median(update_ms)
+    state.optimizer.zero_grad(set_to_none=True)
+
+    # agreement: the forward loss of a batch-2 micro-batch with given draws, on
+    # the card against the same weights in fp32 on the CPU (plain versions)
+    vbatch, _ = train_batch(2, 40)
+    cpu_gen = torch.Generator().manual_seed(6)
+    draws = {"posterior_noise": torch.randn(tpipe.latent_shape(2), generator=cpu_gen),
+             "eps": torch.randn(tpipe.latent_shape(2), generator=cpu_gen),
+             "u": torch.tensor([3, 12]), "w": torch.tensor([0.3, 0.8])}
+
+    def forward_loss(p, micro):
+        with torch.no_grad():
+            pred, target, snr = tstep.consistency_forward(
+                p, heun, step_cfg, p.unets["student"], p.unets["student_target"], micro,
+                draws=draws)
+            inst = tstep.mse_instance(pred, target) \
+                * schedulers.min_snr_weights_stage2(snr, step_cfg.snr_gamma)
+        return inst.mean().item(), pred.float().cpu(), target.float().cpu()
+
+    got_loss, got_pred, got_target = forward_loss(tpipe, vbatch)
+    cpu = lambda m: copy.deepcopy(m).to("cpu", torch.float32)
+    ref = Pipeline(config, {r: cpu(tpipe.unets[r]) for r in ("student", "student_target", "teacher")},
+                   cpu(tpipe.vae), None, cpu(tpipe.t5), torch.device("cpu"), torch.float32)
+    t0 = time.perf_counter()
+    want_loss, want_pred, want_target = forward_loss(
+        ref, {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in vbatch.items()})
+    train_ref_s = time.perf_counter() - t0
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    loss_rel = abs(got_loss - want_loss) / abs(want_loss)
+    median_s = statistics.median(step_s)
+    emit({
+        "phase": "train", "config": "PipelineConfig() light UNet + teacher, T5-large; "
+        "fp32 student/target/EMA under bf16 autocast, bf16 frozen modules",
+        "create_seconds": train_create_s, "micro_batch": TRAIN_BATCH,
+        "heun_steps": HEUN_STEPS, "learning_rate": TRAIN_LR, "timed_steps": TRAIN_STEPS,
+        "step_ms": spread(step_s), "samples_per_s": TRAIN_BATCH / median_s,
+        "peak_memory_gb": peak_train_gb, "losses": losses,
+        "step_without_remat_ms": spread(no_remat_s),
+        "peak_memory_without_remat_gb": peak_no_remat_gb,
+        "validation": val, "validation_batch": 2, "validation_ms": 1e3 * validate_s,
+        "launches": train_launches, "expected_launches": train_expected,
+        "parts_ms": parts,
+        "reference": {"loss": got_loss, "cpu_fp32_loss": want_loss, "loss_rel_err": loss_rel,
+                      "tol_loss_rel_err": TOL_TRAIN_LOSS,
+                      "student_rel_l2": rel(got_pred, want_pred),
+                      "target_rel_l2": rel(got_target, want_target),
+                      "tol_rel_l2": ref_tol, "cpu_fp32_seconds": train_ref_s},
+    })
+    if not loss_rel <= TOL_TRAIN_LOSS:
+        fail(f"train forward loss {got_loss} differs from the fp32 CPU reference {want_loss}")
+    if not max(rel(got_pred, want_pred), rel(got_target, want_target)) <= ref_tol:
+        fail("train forward predictions differ from the fp32 CPU reference")
+
     # -- summary ----------------------------------------------------------------
     sources = {
         "flash_mha_packed": ("consistencytta_torch/csrc/flash_attention.cu",
@@ -381,18 +692,30 @@ def main() -> None:
                                  "consistencytta_tpu/ops/pallas_attention.py:420"),
         "fused_mrf_level": ("consistencytta_torch/csrc/mrf.cu",
                             "consistencytta_tpu/ops/pallas_mrf.py:508"),
+        "stft_magnitude": ("consistencytta_torch/csrc/stft.cu",
+                           "consistencytta_tpu/ops/pallas_stft.py:89"),
+        "dilated_conv1d": ("consistencytta_torch/csrc/dilated_conv.cu",
+                           "consistencytta_tpu/ops/pallas_blockconv.py:204"),
+    }
+    per = {
+        "stft_magnitude": f"times per train step at micro-batch {TRAIN_BATCH}",
+        "dilated_conv1d": f"times of the six (k, d) convs at batch {BATCH}, C=64, L=81936, "
+                          "once each; on no path, as in the JAX package",
     }
     kernels = []
     for name, (src, rep) in sources.items():
         r = results[name]
-        b_ms, b_by = bound(r["flops"], r["bytes"])
+        b_ms, b_by = bound(r["flops"], r["bytes"], r["peak"])
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"],
+            "launches": launches[name] + train_launches[name],
+            "launches_generate": launches[name], "launches_train": train_launches[name],
+            "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": r["library_ms"],
-            "per": f"times per generate call at batch {BATCH}; launches over the "
-                   f"main-path run's {calls} calls",
+            "per": per.get(name, f"times per generate call at batch {BATCH}")
+            + f"; launches over the generate run's {calls} calls and the train run's "
+              f"{n_train_steps} steps and one validation",
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -45,11 +45,7 @@
 // Known gaps: the halo is recomputed (about 1.2x the useful work at C = 128,
 // T = 224), and there is no warp specialisation or wgmma.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "mma_common.cuh"
 
 // Kernel sizes of the three ResBlocks and their dilations, by value.
 struct MrfPlan {
@@ -76,41 +72,6 @@ __device__ __forceinline__ uint32_t lrelu2(uint32_t v, float slope) {
   h.x = lrelu(h.x, slope);
   h.y = lrelu(h.y, slope);
   return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulate
-__device__ __forceinline__ void mma16816(float* d, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __host__ __device__ constexpr int co_width(int C) { return C < 128 ? C : 128; }

@@ -144,7 +144,7 @@ def unet_state_dict(p: Tree, config: UNetConfig) -> StateDict:
     return sd
 
 
-# -- VAE decoder -------------------------------------------------------------
+# -- VAE ---------------------------------------------------------------------
 
 
 def _vae_resnet(sd: StateDict, key: str, p: Tree) -> None:
@@ -156,18 +156,22 @@ def _vae_resnet(sd: StateDict, key: str, p: Tree) -> None:
         _conv2d(sd, f"{key}.nin_shortcut", p["nin_shortcut"])
 
 
+def _vae_mid(sd: StateDict, key: str, p: Tree) -> None:
+    _vae_resnet(sd, f"{key}.block_1", p["mid_block_1"])
+    attn = p["mid_attn_1"]
+    _norm(sd, f"{key}.attn_1.norm", attn["norm"])
+    for n in ("q", "k", "v", "proj_out"):
+        _conv2d(sd, f"{key}.attn_1.{n}", attn[n])
+    _vae_resnet(sd, f"{key}.block_2", p["mid_block_2"])
+
+
 def vae_decoder_state_dict(p: Tree, config: VAEConfig) -> StateDict:
     """The decoder pair (decoder + post_quant_conv) of a JAX AutoencoderKL
-    tree; its encoder and quant_conv are not part of the port yet."""
+    tree, for `AutoencoderKLDecoder`."""
     dec = p["decoder"]
     sd: StateDict = {}
     _conv2d(sd, "decoder.conv_in", dec["conv_in"])
-    _vae_resnet(sd, "decoder.mid.block_1", dec["mid_block_1"])
-    attn = dec["mid_attn_1"]
-    _norm(sd, "decoder.mid.attn_1.norm", attn["norm"])
-    for n in ("q", "k", "v", "proj_out"):
-        _conv2d(sd, f"decoder.mid.attn_1.{n}", attn[n])
-    _vae_resnet(sd, "decoder.mid.block_2", dec["mid_block_2"])
+    _vae_mid(sd, "decoder.mid", dec)
     for i in range(len(config.ch_mult)):
         for j in range(config.num_res_blocks + 1):
             _vae_resnet(sd, f"decoder.up.{i}.block.{j}", dec[f"up_{i}_block_{j}"])
@@ -176,6 +180,24 @@ def vae_decoder_state_dict(p: Tree, config: VAEConfig) -> StateDict:
     _norm(sd, "decoder.norm_out", dec["norm_out"])
     _conv2d(sd, "decoder.conv_out", dec["conv_out"])
     _conv2d(sd, "post_quant_conv", p["post_quant_conv"])
+    return sd
+
+
+def vae_state_dict(p: Tree, config: VAEConfig) -> StateDict:
+    """A whole JAX AutoencoderKL tree (encoder, quant_conv and the decoder
+    pair), for `AutoencoderKL`."""
+    enc = p["encoder"]
+    sd = vae_decoder_state_dict(p, config)
+    _conv2d(sd, "encoder.conv_in", enc["conv_in"])
+    for i in range(len(config.ch_mult)):
+        for j in range(config.num_res_blocks):
+            _vae_resnet(sd, f"encoder.down.{i}.block.{j}", enc[f"down_{i}_block_{j}"])
+        if i != len(config.ch_mult) - 1:
+            _conv2d(sd, f"encoder.down.{i}.downsample.conv", enc[f"down_{i}_downsample"])
+    _vae_mid(sd, "encoder.mid", enc)
+    _norm(sd, "encoder.norm_out", enc["norm_out"])
+    _conv2d(sd, "encoder.conv_out", enc["conv_out"])
+    _conv2d(sd, "quant_conv", p["quant_conv"])
     return sd
 
 
@@ -206,7 +228,7 @@ def load_pipeline_params(pipeline, params) -> None:
     # load_state_dict copies into the existing parameters, casting to their
     # dtype and device
     pipeline.t5.load_state_dict(t5_state_dict(params.t5, cfg.t5.num_layers))
-    pipeline.vae.load_state_dict(vae_decoder_state_dict(params.vae, cfg.vae))
+    pipeline.vae.load_state_dict(vae_state_dict(params.vae, cfg.vae))
     pipeline.vocoder.load_state_dict(hifigan_state_dict(params.vocoder, cfg.vocoder))
     for role, unet in pipeline.unets.items():
         tree = getattr(params, role, None)

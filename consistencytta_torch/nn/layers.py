@@ -45,3 +45,9 @@ class LayerNorm(nn.LayerNorm):
 def nearest_upsample_2d(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
     """Nearest-neighbour upsampling of an NCHW map."""
     return F.interpolate(x, scale_factor=scale, mode="nearest")
+
+
+def asymmetric_pad_downsample(x: torch.Tensor) -> torch.Tensor:
+    """The VAE encoder's (0, 1) x (0, 1) zero pad of an NCHW map before its
+    stride-2 unpadded conv."""
+    return F.pad(x, (0, 1, 0, 1))

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled on its own by
 `nvcc` for Hopper (sm_90a) into `build/lib<name>-<hash>.so` at the root of
-the checkout, where <hash> is a digest of the source and the flags: an
-edited source gets a new library, and a library that exists is reused. The
+the checkout, where <hash> is a digest of the source, the shared headers
+(`csrc/*.cuh`) and the flags: an edited source gets a new library, and a
+library that exists is reused. The
 libraries are loaded with ctypes; pointers and the stream are passed as
 `c_void_p`, integers as `c_int`, scalars as `c_float`. Every entry point
 launches on the caller's stream and returns `cudaGetLastError()`, which
@@ -30,7 +31,7 @@ FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("flash_attention", "mrf")
+SOURCES = ("flash_attention", "mrf", "stft", "dilated_conv")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -43,9 +44,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD, f"lib{name}-{digest[:16]}.so")
+    headers = sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:

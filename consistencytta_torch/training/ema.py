@@ -1,0 +1,18 @@
+"""Exponential moving averages over module parameters. The consistency
+recipe keeps two shadows of the student: the target network (decay 0.95) and
+the inference EMA (decay 0.999)."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+@torch.no_grad()
+def ema_update(shadow: nn.Module, module: nn.Module, decay: float) -> None:
+    """shadow <- shadow + (1 - decay) * (module - shadow), in place over the
+    two modules' parameters (same architecture, same order)."""
+    s, p = list(shadow.parameters()), list(module.parameters())
+    if len(s) != len(p):
+        raise ValueError("ema_update: the modules differ in their parameters")
+    torch._foreach_lerp_(s, p, 1.0 - decay)

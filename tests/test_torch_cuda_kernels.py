@@ -5,19 +5,28 @@ imports nothing of JAX, so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
-(`--noconftest`: tests/conftest.py sets up JAX.) Inputs are bf16. The
-tolerances scale with the plain output's own size, as in chip_smoke.py: the
-largest error at most 2e-2 (attention) or 3e-2 (the 18-conv MRF chain) of
-the output's largest magnitude, and the relative L2 error at most 1e-2.
-bf16 rounding alone moves these outputs by about 0.5% on both measures; a
-wrong softmax scale or a dropped key tile moves them by 9% or more.
+(`--noconftest`: tests/conftest.py sets up JAX.) The attention, MRF and
+dilated-conv inputs are bf16. Their tolerances scale with the plain output's
+own size, as in chip_smoke.py: the largest error at most 2e-2 (attention,
+one conv) or 3e-2 (the 18-conv MRF chain) of the output's largest magnitude,
+and the relative L2 error at most 1e-2. bf16 rounding alone moves these
+outputs by about 0.5% on both measures; a wrong softmax scale or a dropped
+key tile moves them by 9% or more.
+
+The STFT magnitude is float32 in and out and is held to float32 grade: the
+largest error at most 1e-5 of the output's largest magnitude (two orders of
+1024-term float32 sums differ by about 1e-6 of it), which a single bf16 or
+TF32 pass (1e-3 to 1e-4 of it), zero padding or a dropped window tail all
+fail.
 """
 
 import pytest
 import torch
 
+from consistencytta_torch.configs import STFTConfig
 from consistencytta_torch.ops import attention as ops
-from consistencytta_torch.ops import mrf
+from consistencytta_torch.ops import dilated_conv as dc
+from consistencytta_torch.ops import mrf, stft
 
 KS = (3, 7, 11)
 DS = ((1, 3, 5),) * 3
@@ -81,3 +90,109 @@ def test_fused_mrf_level(gen, c, length):
     bs = [(torch.randn(c, device="cuda", generator=gen) * 0.05).bfloat16() for _ in range(18)]
     got = mrf.fused_mrf_level(x, ws, bs, KS, DS, 0.1)
     assert_close_rel(got, mrf.mrf_level_plain(x, ws, bs, KS, DS, 0.1), 3e-2)
+
+
+# -- K4: STFT magnitude ------------------------------------------------------
+
+STFT_TOL = 1e-5
+
+
+def _stft_close(got, want):
+    return bool(torch.isfinite(got).all()) and \
+        (got - want).abs().max().item() <= STFT_TOL * want.abs().max().item()
+
+
+@pytest.mark.parametrize("b,t", [(2, 160000), (1, 513), (3, 10240), (1, 32007)])
+def test_stft_magnitude(gen, b, t):
+    fe = stft.MelFrontend(STFTConfig(), device="cuda")
+    wav = torch.randn(b, t, device="cuda", generator=gen) * 0.3
+    before = stft.stft_magnitude_cuda.launches
+    got = fe.magnitude(wav)  # a CUDA tensor: the kernel
+    torch.cuda.synchronize()
+    assert stft.stft_magnitude_cuda.launches == before + 1
+    want = stft.stft_magnitude(wav, fe.cos_basis, fe.sin_basis, 160, 512)
+    assert got.shape == want.shape == (b, t // 160 + 1, 513)
+    assert _stft_close(got, want)
+
+
+def test_stft_tolerance_rejects_planted_faults(gen):
+    fe = stft.MelFrontend(STFTConfig(), device="cuda")
+    wav = torch.randn(2, 32000, device="cuda", generator=gen) * 0.3
+    cos_b, sin_b = fe.cos_basis, fe.sin_basis
+    want = stft.stft_magnitude(wav, cos_b, sin_b, 160, 512)
+    rounded = lambda t: t.bfloat16().float()
+    zero_padded = torch.nn.functional.pad(wav, (512, 512))
+    tail = torch.ones(1024, 1, device="cuda")
+    tail[-64:] = 0
+    faults = {
+        "single_bf16_pass": stft.stft_magnitude(rounded(wav), rounded(cos_b), rounded(sin_b), 160, 512),
+        "zero_padding": stft.stft_magnitude(zero_padded, cos_b, sin_b, 160, 0),
+        "window_tail_dropped": stft.stft_magnitude(wav, cos_b * tail, sin_b * tail, 160, 512),
+    }
+    for name, bad in faults.items():
+        assert not _stft_close(bad, want), name
+
+
+def test_stft_kernel_refuses_what_it_does_not_take(gen):
+    fe = stft.MelFrontend(STFTConfig(), device="cuda")
+    with pytest.raises(ValueError, match="reflect"):
+        fe.magnitude(torch.zeros(1, 512, device="cuda"))
+    with pytest.raises(RuntimeError, match="no gradient"):
+        fe.magnitude(torch.zeros(1, 4000, device="cuda", requires_grad=True))
+    with pytest.raises(TypeError):
+        fe.magnitude(torch.zeros(1, 4000, device="cuda", dtype=torch.float64))
+
+
+# -- K5: dilated conv1d ------------------------------------------------------
+
+PAIRS = [(3, 3), (3, 5), (7, 3), (7, 5), (11, 3), (11, 5)]
+
+
+def _conv_inputs(gen, b, c, length, k):
+    x = (torch.randn(b, c, length, device="cuda", generator=gen) * 0.5).bfloat16()
+    w = (torch.randn(c, c, k, device="cuda", generator=gen) / (c * k) ** 0.5).bfloat16()
+    return x, w
+
+
+@pytest.mark.parametrize("k,d", PAIRS)
+@pytest.mark.parametrize("c,length", [(64, 5003), (32, 700), (128, 1000)])
+def test_dilated_conv1d(gen, c, length, k, d):
+    x, w = _conv_inputs(gen, 2, c, length, k)
+    p = d * (k - 1) // 2
+    before = dc.dilated_conv1d.launches
+    got = dc.dilated_conv1d(x, w, d, p)
+    torch.cuda.synchronize()
+    assert dc.dilated_conv1d.launches == before + 1
+    assert got.shape == x.shape and got.dtype == torch.bfloat16
+    assert_close_rel(got, dc.dilated_conv1d_plain(x, w, d, p), 2e-2)
+
+
+def test_dilated_conv1d_other_paddings(gen):
+    x, w = _conv_inputs(gen, 1, 64, 999, 7)
+    for p in (0, 4, 20):
+        got = dc.dilated_conv1d(x, w, 3, p)
+        assert got.shape == (1, 64, 999 + 2 * p - 18)
+        assert_close_rel(got, dc.dilated_conv1d_plain(x, w, 3, p), 2e-2)
+
+
+def test_dilated_conv1d_gradient_is_the_plain_gradient(gen):
+    x, w = _conv_inputs(gen, 1, 64, 600, 3)
+    x.requires_grad_()
+    w.requires_grad_()
+    dc.dilated_conv1d(x, w, 5, 5).float().square().sum().backward()
+    gx, gw = x.grad.clone(), w.grad.clone()
+    x.grad = w.grad = None
+    dc.dilated_conv1d_plain(x, w, 5, 5).float().square().sum().backward()
+    assert_close_rel(gx, x.grad, 2e-2)
+    assert_close_rel(gw, w.grad, 2e-2)
+
+
+def test_dilated_conv1d_refuses_what_it_does_not_take(gen):
+    x, w = _conv_inputs(gen, 1, 48, 100, 3)
+    with pytest.raises(ValueError):
+        dc.dilated_conv1d(x, w, 3, 3)  # C other than 32, 64, 128
+    x, w = _conv_inputs(gen, 1, 64, 100, 3)
+    with pytest.raises(TypeError):
+        dc.dilated_conv1d(x.float(), w.float(), 3, 3)
+    with pytest.raises(ValueError):
+        dc.dilated_conv1d(x, w[:32], 3, 3)  # C_out != C_in

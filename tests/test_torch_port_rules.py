@@ -32,6 +32,10 @@ def _imported_roots(path):
 def test_port_imports_no_jax():
     files = _port_files()
     assert len(files) > 10 and os.path.exists(files[0])
+    names = {os.path.relpath(f, REPO) for f in files}
+    for new in ("ops/stft.py", "ops/mel.py", "ops/dilated_conv.py", "training/step.py",
+                "training/optim.py", "training/ema.py", "training/losses.py"):
+        assert os.path.join("consistencytta_torch", new) in names
     bad = {}
     for path in files:
         roots = set(_imported_roots(path))
@@ -59,3 +63,33 @@ def test_cuda_request_without_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         Pipeline.create(PipelineConfig.tiny(), device="cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("builder", ["build_consistency_train_step", "build_validation_step",
+                                     "build_guided_train_step"])
+def test_train_step_on_cuda_without_card_raises(monkeypatch, builder):
+    """A pipeline that says it lives on the card, where there is none: the
+    step builders raise instead of running on the CPU."""
+    from consistencytta_torch.configs import PipelineConfig, SchedulerConfig
+    from consistencytta_torch.models.pipeline import Pipeline
+    from consistencytta_torch.ops import schedulers
+    from consistencytta_torch.training import step
+
+    pipe = Pipeline.create(PipelineConfig.tiny(), dtype=torch.float32, device="cpu")
+    pipe.device = torch.device("cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    make = schedulers.make_ddpm_schedule if "guided" in builder else \
+        (lambda cfg: schedulers.make_heun_schedule(cfg, 18))
+    with pytest.raises(RuntimeError, match="cuda"):
+        getattr(step, builder)(pipe, make(SchedulerConfig()))
+
+
+def test_kernel_wrappers_take_the_plain_version_only_for_a_cpu_tensor():
+    """The dispatch is on the tensor's device and nothing else: the wrappers'
+    sources name no environment switch and catch no exception."""
+    for rel in ("ops/stft.py", "ops/dilated_conv.py", "ops/attention.py", "ops/mrf.py"):
+        with open(os.path.join(REPO, "consistencytta_torch", rel)) as f:
+            tree = ast.parse(f.read())
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)], rel
+        names = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+        assert "environ" not in names and "getenv" not in names, rel
