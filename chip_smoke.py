@@ -10,7 +10,11 @@ JSON lines:
   env      card name and power limit (nvidia-smi), torch / CUDA versions,
            kernel build seconds;
   kernel   each kernel against its plain PyTorch version on the same inputs
-           at the main path's shapes (bf16, batch 32), with the error and
+           at the shapes the driven paths give it (bf16; batch 32 for the
+           generate path, 16 and 8 for the train step, 4 and 2 for the
+           validation step; only batch 32 enters the summed times), with the
+           gradient of the UNet attention kernel under autocast against the
+           plain version's at S = 1024, and with the error and
            the tolerance (both scaled by the plain output's own size), the
            same tolerance applied to planted faults (the plain version with a
            wrong scale, a dropped tile, ...), which it must reject, and
@@ -18,7 +22,7 @@ JSON lines:
            one PyTorch library call computing the same function (SDPA for
            attention; none for the MRF level) and the bound (the larger of
            bytes over 3.35 TB/s and operations over 989 TFLOP/s). The STFT
-           magnitude (float32, B = 8 and 32 ten-second clips) is held to
+           magnitude (float32, B = 8, 2 and 32 ten-second clips) is held to
            float32 grade, 1e-5 of the largest output, against planted
            single-pass bf16 and TF32 products, zero padding and a dropped
            window tail; its library call is torch.stft and its operations
@@ -36,10 +40,9 @@ JSON lines:
            size), peak memory and per-stage times;
   train    the training path: Pipeline.create(..., training=True) with the
            teacher, an 18-step Heun schedule, seeded synthetic 10-s
-           waveforms and hash-tokenized prompts; one warm-up and three timed
+           waveforms and hash-tokenized prompts; one warm-up and ten timed
            stage-2 optimizer steps at micro-batch 8 (constant learning rate
-           1e-4, so that the first steps move the weights), three more
-           without recomputing the student's forward, and one validation
+           1e-4, so that the first steps move the weights) and one validation
            step at batch 2, with the launch counters set to 0 before and
            read after and compared with the counts the code implies; finite
            losses; the student and both EMAs moved as their decays imply;
@@ -74,7 +77,8 @@ TOL_L2 = 1e-2  # relative L2 error allowed for every kernel against its plain ve
 TIMED_CALLS = 10  # timed generate calls per batch size, after one warm-up
 TOL_STFT = 1e-5  # largest STFT error allowed, as a share of the largest magnitude
 TRAIN_BATCH = 8  # micro-batch of the stage-2 steps
-TRAIN_STEPS = 3  # timed optimizer steps, after one warm-up
+TRAIN_STEPS = 10  # timed optimizer steps, after one warm-up
+VAL_BATCH = 2  # batch of the validation step and of the agreement check
 TRAIN_LR = 1e-4  # constant: the default schedule's warm-up starts at 0
 HEUN_STEPS = 18
 TOL_TRAIN_LOSS = 0.05  # card (bf16, kernels) against CPU fp32, relative
@@ -242,44 +246,94 @@ def main() -> None:
     # K1: the UNet's self-attention shapes; launches per UNet query in brackets.
     # Heads are 51 wide, padded to the kernel's 64 with zero columns (as the
     # UNet's projections pad them); the bound counts the 51 the function needs.
-    for s, h, per_call in ((4096, 5, 5), (1024, 10, 5), (256, 20, 5), (64, 20, 1)):
-        qkv = torch.randn(BATCH, s, 3, h, 64, device=dev, generator=gen)
-        qkv[..., HEAD_WIDTH:] = 0
-        q, k, v = qkv.flatten(-2).bfloat16().unbind(2)
-        scale = HEAD_WIDTH ** -0.5
+    # Every batch a driven path hands the kernel is checked; the summed times
+    # count the generate path's batch only.
+    k1_batches = ((BATCH, "generate"),
+                  (2 * TRAIN_BATCH, "train: the CFG teacher's [uncond; cond] queries"),
+                  (TRAIN_BATCH, "train: target and student queries"),
+                  (2 * VAL_BATCH, "validation: the CFG teacher's queries"),
+                  (VAL_BATCH, "validation: target queries"))
+    for b, path in k1_batches:
+        for s, h, per_call in ((4096, 5, 5), (1024, 10, 5), (256, 20, 5), (64, 20, 1)):
+            qkv = torch.randn(b, s, 3, h, 64, device=dev, generator=gen)
+            qkv[..., HEAD_WIDTH:] = 0
+            q, k, v = qkv.flatten(-2).bfloat16().unbind(2)
+            scale = HEAD_WIDTH ** -0.5
 
-        def plain(q=q, k=k, v=v, h=h, scale=scale):
-            return chunked(lambda a, b, c: att.flash_mha_packed_plain(a, b, c, h, scale),
-                           4, q, k, v)
-        kern = lambda: att.flash_mha_packed(q, k, v, h, scale)
-        heads = lambda t: t.unflatten(-1, (h, 64)).transpose(1, 2)
-        lib = lambda: sdpa(heads(q), heads(k), heads(v), scale=scale)
-        got, want = launch(att.flash_mha_packed, kern), plain()
-        mutants = {"scale_of_width_64": plain(scale=64 ** -0.5),
+            def plain(q=q, k=k, v=v, h=h, scale=scale):
+                return chunked(lambda a, b, c: att.flash_mha_packed_plain(a, b, c, h, scale),
+                               4, q, k, v)
+            kern = lambda: att.flash_mha_packed(q, k, v, h, scale)
+            heads = lambda t: t.unflatten(-1, (h, 64)).transpose(1, 2)
+            lib = lambda: sdpa(heads(q), heads(k), heads(v), scale=scale)
+            got, want = launch(att.flash_mha_packed, kern), plain()
+            mutants = {"scale_of_width_64": plain(scale=64 ** -0.5),
+                       "last_32_keys_dropped": plain(k=k[:, :-32], v=v[:, :-32])}
+            iters = max(2, int(2e4 // s))
+            record("flash_mha_packed", f"B={b} S={s} H={h} d={HEAD_WIDTH} (64 padded)",
+                   got, want, 2e-2, mutants,
+                   cuda_ms(torch, kern, iters), cuda_ms(torch, plain, 1),
+                   cuda_ms(torch, lib, iters),
+                   4.0 * b * h * s * s * HEAD_WIDTH, 4.0 * b * s * h * HEAD_WIDTH * 2,
+                   per_call, weight=per_call if b == BATCH else 0, path=path)
+            del qkv, q, k, v, got, want, mutants
+    # K1's gradient as the student's backward takes it: q, k and v are slices
+    # of one projection that requires grad, the kernel runs under autocast,
+    # and the backward of its autograd.Function is held against autograd
+    # through the plain version outside autocast. S = 1024, where the plain
+    # version's [B, H, S, S] logits are small. The faults: the plain gradient
+    # at the scale of width 64, and with the k and v thirds exchanged.
+    b, s, h = TRAIN_BATCH, 1024, 10
+    qkv = torch.randn(b, s, 3, h, 64, device=dev, generator=gen)
+    qkv[..., HEAD_WIDTH:] = 0
+    qkv = qkv.flatten(2).bfloat16()
+    g_out = torch.randn(b, s, h * 64, device=dev, generator=gen).bfloat16()
+
+    def qkv_grad(fn, scale, autocast):
+        leaf = qkv.clone().requires_grad_()
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=autocast):
+            out = fn(*leaf.split(h * 64, dim=-1), h, scale)
+        return torch.autograd.grad(out, leaf, g_out)[0]
+
+    got = launch(att.flash_mha_packed,
+                 lambda: qkv_grad(att.flash_mha_packed, HEAD_WIDTH ** -0.5, True))
+    want = qkv_grad(att.flash_mha_packed_plain, HEAD_WIDTH ** -0.5, False)
+    dq, dk, dv = want.split(h * 64, dim=-1)
+    grad_mutants = {
+        "scale_of_width_64": qkv_grad(att.flash_mha_packed_plain, 64 ** -0.5, False),
+        "dk_dv_exchanged": torch.cat([dq, dv, dk], dim=-1),
+    }
+    err, scale, l2 = compare(got, want)
+    caught = {f: not within(bad, want, 2e-2) for f, bad in grad_mutants.items()}
+    emit({"phase": "kernel", "name": "flash_mha_packed", "check": "gradient under autocast",
+          "shape": f"B={b} S={s} H={h} d={HEAD_WIDTH} (64 padded)", "max_abs_err": err,
+          "max_abs_plain": scale, "tol_max_abs": 2e-2 * scale, "rel_l2": l2,
+          "tol_rel_l2": TOL_L2, "ok": within(got, want, 2e-2), "mutants_caught": caught})
+    if not within(got, want, 2e-2):
+        fail(f"flash_mha_packed gradient: max abs err {err} (tol {2e-2 * scale}), rel L2 {l2}")
+    if not all(caught.values()):
+        fail(f"flash_mha_packed gradient: the tolerance passes planted faults {caught}")
+    del qkv, g_out, got, want, dq, dk, dv, grad_mutants
+    # K2: the VAE mid-block attention, one launch per decode chunk (generate)
+    # and one per encoded micro-batch (train, validation)
+    for b, path in ((BATCH, "generate"), (TRAIN_BATCH, "train: the VAE encoder"),
+                    (VAL_BATCH, "validation: the VAE encoder")):
+        qkv = torch.randn(b, 4096, 3 * 512, device=dev, generator=gen).bfloat16()
+        q, k, v = qkv.split(512, dim=-1)
+        scale = 512 ** -0.5
+
+        def plain(q=q, k=k, v=v, scale=scale):
+            return chunked(lambda a, b, c: att.attention_plain(a, b, c, scale), 8, q, k, v)
+        kern = lambda: att.flash_self_attention(q, k, v, scale)
+        lib = lambda: sdpa(q[:, None], k[:, None], v[:, None], scale=scale)
+        got, want = launch(att.flash_self_attention, kern), plain()
+        mutants = {"scale_x1.1": plain(scale=1.1 * scale),
                    "last_32_keys_dropped": plain(k=k[:, :-32], v=v[:, :-32])}
-        iters = max(2, int(2e4 // s))
-        record("flash_mha_packed", f"B={BATCH} S={s} H={h} d={HEAD_WIDTH} (64 padded)",
-               got, want, 2e-2, mutants,
-               cuda_ms(torch, kern, iters), cuda_ms(torch, plain, 1), cuda_ms(torch, lib, iters),
-               4.0 * BATCH * h * s * s * HEAD_WIDTH, 4.0 * BATCH * s * h * HEAD_WIDTH * 2,
-               per_call)
+        record("flash_self_attention", f"B={b} S=4096 D=512", got, want, 2e-2, mutants,
+               cuda_ms(torch, kern, 3), cuda_ms(torch, plain, 1), cuda_ms(torch, lib, 3),
+               4.0 * b * 4096 * 4096 * 512, 4.0 * b * 4096 * 512 * 2, 1,
+               weight=1 if b == BATCH else 0, path=path)
         del qkv, q, k, v, got, want, mutants
-    # K2: the VAE mid-block attention, one launch per decode chunk
-    qkv = torch.randn(BATCH, 4096, 3 * 512, device=dev, generator=gen).bfloat16()
-    q, k, v = qkv.split(512, dim=-1)
-    scale = 512 ** -0.5
-
-    def plain(k=k, v=v, scale=scale):
-        return chunked(lambda a, b, c: att.attention_plain(a, b, c, scale), 8, q, k, v)
-    kern = lambda: att.flash_self_attention(q, k, v, scale)
-    lib = lambda: sdpa(q[:, None], k[:, None], v[:, None], scale=scale)
-    got, want = launch(att.flash_self_attention, kern), plain()
-    mutants = {"scale_x1.1": plain(scale=1.1 * scale),
-               "last_32_keys_dropped": plain(k=k[:, :-32], v=v[:, :-32])}
-    record("flash_self_attention", f"B={BATCH} S=4096 D=512", got, want, 2e-2, mutants,
-           cuda_ms(torch, kern, 3), cuda_ms(torch, plain, 1), cuda_ms(torch, lib, 3),
-           4.0 * BATCH * 4096 * 4096 * 512, 4.0 * BATCH * 4096 * 512 * 2, 1)
-    del qkv, q, k, v, got, want, mutants
     # K3: the vocoder's MRF levels; the fused levels (C <= 128) once per chunk.
     # The plain chain has two formulations of its dilated convs (direct, and
     # split into phases); plain_ms is the faster of the two at each shape.
@@ -330,7 +384,7 @@ def main() -> None:
             torch.backends.cuda.matmul.allow_tf32 = False
         return torch.sqrt(re * re + im * im)
 
-    for b, per_call in ((TRAIN_BATCH, 1), (BATCH, 0)):
+    for b, per_call in ((TRAIN_BATCH, 1), (VAL_BATCH, 0), (BATCH, 0)):
         wav = (torch.randn(b, samples, device=dev, generator=gen) * 0.3).clamp(-1, 1)
         kern = lambda: frontend.magnitude(wav)
         plain = lambda w=wav, c=cos_b, s_=sin_b, pad=half: stft.stft_magnitude(w, c, s_, hop, pad)
@@ -505,8 +559,6 @@ def main() -> None:
         tpipe, OptimizerConfig(learning_rate=TRAIN_LR, lr_scheduler_type="constant"))
     step_cfg = tstep.ConsistencyStepConfig()
     train_step = tstep.build_consistency_train_step(tpipe, heun, step_cfg)
-    step_no_remat = tstep.build_consistency_train_step(
-        tpipe, heun, tstep.ConsistencyStepConfig(remat_student=False))
     validate = tstep.build_validation_step(tpipe, heun, step_cfg)
 
     def train_batch(batch, seed):
@@ -549,37 +601,23 @@ def main() -> None:
         if not (all(m > 0 for m in moved) and all(e <= ulp for e in ema_err)):
             fail(f"train step {i}: moved {moved}, EMA errors {ema_err} (allowed {ulp})")
     peak_train_gb = torch.cuda.max_memory_allocated() / 2**30
-    # the same steps without recomputing the student's forward in the backward
-    torch.cuda.reset_peak_memory_stats()
-    no_remat_s = []
-    for i in range(TRAIN_STEPS):
-        batch, g = train_batch(TRAIN_BATCH, 10 + i)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        metrics = step_no_remat(state, batch, generator=g)
-        torch.cuda.synchronize()
-        no_remat_s.append(time.perf_counter() - t0)
-        losses.append(metrics["loss"].item())
-        if not metrics["loss_finite"]:
-            fail(f"train step {i} without recomputation: non-finite loss or gradient")
-    peak_no_remat_gb = torch.cuda.max_memory_allocated() / 2**30
-    vbatch, g = train_batch(2, 20)
+    vbatch, g = train_batch(VAL_BATCH, 20)
     t0 = time.perf_counter()
     val = {k: v.item() for k, v in validate(state, vbatch, generator=g).items()}
     torch.cuda.synchronize()
     validate_s = time.perf_counter() - t0
     train_launches = read_counters()
-    n_train_steps = 1 + 2 * TRAIN_STEPS
+    n_train_steps = 1 + TRAIN_STEPS
     if state.step != n_train_steps:
         fail(f"step count {state.step} after {n_train_steps} steps")
     if not all(v == v and abs(v) != float("inf") for v in (*losses, *val.values())):
         fail(f"non-finite loss: train {losses}, validation {val}")
     # per step: the frontend and the encoder's attention once; 16 attention
-    # launches per UNet query, over two teacher queries, one target query,
-    # the student's forward and its recomputation in the backward pass.
+    # launches per UNet query, over two teacher queries, one target query
+    # and the student's forward (its backward is the plain version's).
     # Validation: two teacher queries and two target queries on the first
     # interval, two teacher queries on each later one, one for the last step.
-    unet_queries = (1 + TRAIN_STEPS) * 5 + TRAIN_STEPS * 4 + (4 + 2 * (HEUN_STEPS - 2) + 1)
+    unet_queries = n_train_steps * 4 + (4 + 2 * (HEUN_STEPS - 2) + 1)
     calls_t = n_train_steps + 1
     train_expected = {"flash_mha_packed": 16 * unet_queries, "flash_self_attention": calls_t,
                       "fused_mrf_level": 0, "stft_magnitude": calls_t, "dilated_conv1d": 0}
@@ -587,8 +625,6 @@ def main() -> None:
         fail(f"train launch counts {train_launches} != expected {train_expected}")
 
     # the parts of one step at the micro-batch, one by one (outside the counted run)
-    from torch.utils.checkpoint import checkpoint
-
     from consistencytta_torch.training.ema import ema_update
 
     batch, g = train_batch(TRAIN_BATCH, 30)
@@ -616,8 +652,7 @@ def main() -> None:
 
     def student_forward_backward():
         state.optimizer.zero_grad(set_to_none=True)
-        pred = checkpoint(tpipe.query_unet, state.student, z_scaled, t_a, text_c, mask_c, w8,
-                          use_reentrant=False)
+        pred = tpipe.query_unet(state.student, z_scaled, t_a, text_c, mask_c, w8)
         loss = tstep.mse_instance(pred, z0).mean()
         loss.backward()
         return loss.detach()
@@ -635,7 +670,7 @@ def main() -> None:
 
     # agreement: the forward loss of a batch-2 micro-batch with given draws, on
     # the card against the same weights in fp32 on the CPU (plain versions)
-    vbatch, _ = train_batch(2, 40)
+    vbatch, _ = train_batch(VAL_BATCH, 40)
     cpu_gen = torch.Generator().manual_seed(6)
     draws = {"posterior_noise": torch.randn(tpipe.latent_shape(2), generator=cpu_gen),
              "eps": torch.randn(tpipe.latent_shape(2), generator=cpu_gen),
@@ -668,9 +703,7 @@ def main() -> None:
         "heun_steps": HEUN_STEPS, "learning_rate": TRAIN_LR, "timed_steps": TRAIN_STEPS,
         "step_ms": spread(step_s), "samples_per_s": TRAIN_BATCH / median_s,
         "peak_memory_gb": peak_train_gb, "losses": losses,
-        "step_without_remat_ms": spread(no_remat_s),
-        "peak_memory_without_remat_gb": peak_no_remat_gb,
-        "validation": val, "validation_batch": 2, "validation_ms": 1e3 * validate_s,
+        "validation": val, "validation_batch": VAL_BATCH, "validation_ms": 1e3 * validate_s,
         "launches": train_launches, "expected_launches": train_expected,
         "parts_ms": parts,
         "reference": {"loss": got_loss, "cpu_fp32_loss": want_loss, "loss_rel_err": loss_rel,

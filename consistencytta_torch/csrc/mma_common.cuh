@@ -1,6 +1,7 @@
-// Fragments shared by the port's tensor-core conv kernels (csrc/mrf.cu,
-// csrc/dilated_conv.cu): cp.async staging, ldmatrix and the bf16 mma.sync
-// m16n8k16 product with fp32 accumulation, for sm_80 and later.
+// Fragments shared by the port's tensor-core kernels: cp.async staging
+// (csrc/mrf.cu, csrc/dilated_conv.cu, csrc/stft.cu), and ldmatrix with the
+// bf16 mma.sync m16n8k16 product with fp32 accumulation (the two conv
+// kernels), for sm_80 and later.
 
 #pragma once
 

@@ -48,8 +48,7 @@
 // the split is redone by every warp that loads a value, and mma.sync
 // reaches a fraction of the wgmma rate.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_common.cuh"  // smem_u32, cp_async16, cp_async_commit, cp_async_wait
 
 namespace {
 
@@ -60,24 +59,6 @@ constexpr int KC = 32;            // window samples per staged basis tile
 constexpr int NT = 256;           // 8 warps: 2 (frames) x 4 (bins)
 constexpr int TILE = KC * NC;     // floats of one staged basis tile
 constexpr int SKEW = 8;           // words skipped in the span every hop samples
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // x = hi + lo with hi on 10 mantissa bits (round to nearest) and lo exact
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {

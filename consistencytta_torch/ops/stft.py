@@ -24,6 +24,7 @@ import torch
 from consistencytta_torch.configs import STFTConfig
 from consistencytta_torch.ops import _build
 from consistencytta_torch.ops.mel import mel_filterbank, real_dft_basis
+from consistencytta_torch.utils import resolve_device
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 TILE_FRAMES = 64  # frames per block (TF in csrc/stft.cu)
@@ -161,14 +162,16 @@ def stft_flops(b: int, n_frames: int, length: int, n_bins: int) -> int:
 class MelFrontend:
     """Waveform -> log-mel spectrogram, the TacotronSTFT equivalent.
 
-        frontend = MelFrontend(STFTConfig(), device="cuda")
+        frontend = MelFrontend(STFTConfig())
         mel, mag = frontend(wav)       # [B, T] -> [B, n_frames, 64], [.., 513]
         mel = frontend.to_fixed(mel)   # pad/crop frames to 1024
 
-    The bases and the filterbank are float32 tensors on `device`; the
+    The bases and the filterbank are float32 tensors on `device`: the card
+    unless the caller passes "cpu" (without a card, "cuda" raises). The
     waveforms it is given must lie there too."""
 
-    def __init__(self, config: STFTConfig = STFTConfig(), device="cpu"):
+    def __init__(self, config: STFTConfig = STFTConfig(), device="cuda"):
+        device = resolve_device(device)
         self.config = config
         cos_b, sin_b = real_dft_basis(config.filter_length, config.win_length, window="hann")
         mel_fb = mel_filterbank(

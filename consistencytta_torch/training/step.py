@@ -80,8 +80,8 @@ class TrainState:
         for m in (student, *shadows):
             if any(p.dtype != torch.float32 for p in m.parameters()):
                 raise ValueError("trainable and EMA parameters must be float32")
-        params = [p for p in student.parameters() if p.requires_grad]
-        optimizer, lr_scheduler = make_optimizer(params, config)
+        # every leaf, the frozen Fourier projection too: see guarded_update
+        optimizer, lr_scheduler = make_optimizer(list(student.parameters()), config)
         return cls(0, student, unets["student_target"] if with_target else None,
                    unets["student_ema"], optimizer, lr_scheduler, config.max_grad_norm)
 
@@ -99,9 +99,12 @@ class ConsistencyStepConfig:
     use_edm: bool = True
     accum_steps: int = 1
     uncondition: bool = False  # drop 10% of the text conditions per micro-batch
-    # recompute the trainable student's forward in the backward pass: about
-    # one more forward of work for the activation memory it frees
-    remat_student: bool = True
+    # recompute the trainable student's forward in the backward pass. Off by
+    # default: in eager PyTorch nothing runs between the student's forward
+    # and its backward, so the recomputation costs a forward and lowers no
+    # peak (PERF.md, section 5); it pays only for a caller that holds other
+    # activations across the step.
+    remat_student: bool = False
 
 
 @dataclass(frozen=True)
@@ -269,8 +272,16 @@ def accumulate_gradients(state: TrainState, micro_loss: Callable, batch: Batch, 
 def guarded_update(state: TrainState, loss: torch.Tensor) -> bool:
     """One optimizer update from the accumulated gradients, unless the loss
     or a gradient is non-finite: then student and optimizer stay as they
-    are. Returns whether the update was taken."""
+    are. Returns whether the update was taken.
+
+    A frozen leaf of the student (the Fourier guidance projection) takes the
+    update of a zero gradient, as in the JAX package, which stops that
+    gradient but keeps the leaf in AdamW: the moments stay zero and the
+    decoupled weight decay still shrinks it by lr * weight_decay."""
     params = [p for group in state.optimizer.param_groups for p in group["params"]]
+    for p in params:
+        if p.grad is None and not p.requires_grad:
+            p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params if p.grad is not None]
     checks = torch.stack([loss.float(), *torch._foreach_norm(grads)])
     finite = bool(torch.isfinite(checks).all())

@@ -62,6 +62,31 @@ def test_flash_mha_packed(gen, b, h, s):
     assert_close_rel(got, ops.flash_mha_packed_plain(q, k, v, h, 51 ** -0.5), 2e-2)
 
 
+@pytest.mark.parametrize("b,h,s", [(8, 10, 1024), (2, 5, 333)])
+def test_flash_mha_packed_gradient_under_autocast_is_the_plain_gradient(gen, b, h, s):
+    """As the student's backward takes it: q, k, v are slices of one
+    projection that requires grad and the kernel runs under autocast; the
+    gradient equals autograd through the plain version outside autocast, and
+    the tolerance rejects the k and v gradients exchanged."""
+    qkv = torch.randn(b, s, 3 * h * 64, device="cuda", generator=gen).bfloat16()
+    g = torch.randn(b, s, h * 64, device="cuda", generator=gen).bfloat16()
+
+    def grad(fn, autocast):
+        leaf = qkv.clone().requires_grad_()
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=autocast):
+            out = fn(*leaf.split(h * 64, dim=-1), h, 51 ** -0.5)
+        return torch.autograd.grad(out, leaf, g)[0]
+
+    before = ops.flash_mha_packed.launches
+    got = grad(ops.flash_mha_packed, True)
+    assert ops.flash_mha_packed.launches == before + 1
+    want = grad(ops.flash_mha_packed_plain, False)
+    assert_close_rel(got, want, 2e-2)
+    dq, dk, dv = want.split(h * 64, dim=-1)
+    with pytest.raises(AssertionError):
+        assert_close_rel(torch.cat([dq, dv, dk], dim=-1), want, 2e-2)
+
+
 @pytest.mark.parametrize("b,s", [(2, 4096), (1, 300), (1, 200), (2, 77)])
 def test_flash_self_attention(gen, b, s):
     qkv = torch.randn(b, s, 3 * 512, device="cuda", generator=gen).bfloat16()

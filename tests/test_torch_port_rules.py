@@ -55,6 +55,7 @@ def test_port_imports_no_jax():
 def test_cuda_request_without_card_raises(monkeypatch):
     from consistencytta_torch.configs import PipelineConfig
     from consistencytta_torch.models.pipeline import Pipeline
+    from consistencytta_torch.ops.stft import MelFrontend
     from consistencytta_torch.utils import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -62,6 +63,9 @@ def test_cuda_request_without_card_raises(monkeypatch):
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         Pipeline.create(PipelineConfig.tiny(), device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        MelFrontend()
+    assert MelFrontend(device="cpu").cos_basis.device.type == "cpu"
     assert resolve_device("cpu").type == "cpu"
 
 

@@ -33,7 +33,7 @@ def _threads():
 
 @pytest.fixture(scope="module")
 def frontends():
-    return jstft.MelFrontend(JaxSTFTConfig(), use_pallas=False), stft.MelFrontend(STFTConfig())
+    return jstft.MelFrontend(JaxSTFTConfig(), use_pallas=False), stft.MelFrontend(STFTConfig(), device="cpu")
 
 
 def _wav(seed, b, t, scale=0.3):

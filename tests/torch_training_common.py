@@ -19,11 +19,11 @@ gradient into a full-size step in either direction); the updated weights
 then agree within 2e-3 of one learning rate per step taken, and so do the
 EMA shadows.
 
-One difference between the packages is deliberate and checked here: the
-guidance Fourier projection is frozen. The port leaves it out of the
-optimizer; the JAX package stops its gradient but hands it to optax.adamw
-with every other leaf, whose decoupled weight decay then shrinks it by
-lr * weight_decay each step.
+The guidance Fourier projection is frozen in both packages, and both hand
+it to AdamW with a zero gradient, whose decoupled weight decay shrinks it by
+lr * weight_decay each step: it is compared like every other leaf, and its
+decay is asserted besides. The tolerance of a leaf also allows two float32
+roundings of its largest value (the projection's entries reach tens).
 """
 
 import jax
@@ -108,18 +108,20 @@ def student_weights(state):
 
 
 def _assert_unet(module, tree, atol):
+    """Every leaf of the module against the JAX tree, none left out."""
     want = from_jax.unet_state_dict(tree, PipelineConfig.tiny().unet)
     got = module.state_dict()
     assert sorted(got) == sorted(want)
     for k, v in want.items():
-        if k != FOURIER:
-            np.testing.assert_allclose(got[k].numpy(), v.numpy(), atol=atol, rtol=0, err_msg=k)
+        ulps = 2 * np.finfo(np.float32).eps * float(v.abs().max())
+        np.testing.assert_allclose(got[k].numpy(), v.numpy(), atol=atol + ulps, rtol=0,
+                                   err_msg=k)
 
 
 def assert_states_agree(state, jstate, before):
     """The port's state after some steps against the JAX state: student and
-    shadows within 2e-3 of one learning rate per step; the frozen Fourier weight
-    untouched in the port and decayed in the JAX package. `before` is
+    shadows within 2e-3 of one learning rate per step, the frozen Fourier
+    weight included, which weight decay alone has moved. `before` is
     `student_weights(state)` taken before the first step."""
     steps = int(jstate.step)
     assert state.step == steps
@@ -130,10 +132,9 @@ def assert_states_agree(state, jstate, before):
         _assert_unet(state.student_target, jstate.student_target, tol)
     moved = (state.student.state_dict()["conv_in.weight"] - before["conv_in.weight"]).abs().max()
     assert moved > 0.1 * LR
-    assert torch.equal(state.student.state_dict()[FOURIER], before[FOURIER])
     decayed = before[FOURIER].numpy() * (1 - LR * WEIGHT_DECAY) ** steps
-    np.testing.assert_allclose(np.asarray(jstate.student["guidance_proj"]["weight"]),
-                               decayed, rtol=1e-5)
+    np.testing.assert_allclose(state.student.state_dict()[FOURIER].numpy(), decayed, rtol=1e-6)
+    assert not torch.equal(state.student.state_dict()[FOURIER], before[FOURIER])
 
 
 def run_stage2_steps(accum: int, n_steps: int, micro: int = 2, heun_steps: int = 18):
