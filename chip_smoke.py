@@ -8,11 +8,14 @@ source, in parallel, into `build/`), then runs five phases, each printing
 JSON lines:
 
   env      card name and power limit (nvidia-smi), torch / CUDA versions,
-           kernel build seconds;
+           kernel build seconds, and the attention kernels' registers,
+           spills and shared memory;
   kernel   each kernel against its plain PyTorch version on the same inputs
-           at the shapes the driven paths give it (bf16; batch 32 for the
-           generate path, 16 and 8 for the train step, 4 and 2 for the
-           validation step; only batch 32 enters the summed times), with the
+           at the shapes the driven paths give it (bf16; batch 32 and 1 for
+           the generate path, 16 and 8 for the train step, 4 and 2 for the
+           validation step; only batch 32 enters the summed times; the
+           attention kernels' batch-1 lines also give the host time of one
+           launch beside the library call's), with the
            gradient of the UNet attention kernel under autocast against the
            plain version's at S = 1024, and with the error and
            the tolerance (both scaled by the plain output's own size), the
@@ -171,6 +174,10 @@ def main() -> None:
         "build_seconds": {k: round(v, 2) for k, v in build_s.items()},
         "build_wall_seconds": round(time.perf_counter() - t0, 2),
         "clocks_power": nvidia_smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu"),
+        # registers, spills and shared memory of the attention kernels: what the
+        # loaded library reports, and what ptxas printed when it was built
+        "attention_kernels": att.kernel_resources(),
+        "attention_ptxas": _build.resources("flash_attention"),
     })
 
     # -- kernels against their plain versions ---------------------------------
@@ -242,6 +249,18 @@ def main() -> None:
         [S, S] logits at the large shapes."""
         return torch.cat([fn(*(t[i:i + n] for t in ts)) for i in range(0, ts[0].shape[0], n)])
 
+    def host_us(fn, calls: int = 200) -> float:
+        """Microseconds of host time one call takes to queue its work (the
+        wrapper's checks, the tensor maps and the launch), card not waited for."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return 1e6 * dt / calls
+
     sdpa = torch.nn.functional.scaled_dot_product_attention
     # K1: the UNet's self-attention shapes; launches per UNet query in brackets.
     # Heads are 51 wide, padded to the kernel's 64 with zero columns (as the
@@ -249,6 +268,7 @@ def main() -> None:
     # Every batch a driven path hands the kernel is checked; the summed times
     # count the generate path's batch only.
     k1_batches = ((BATCH, "generate"),
+                  (1, "generate at batch 1, the interactive shape"),
                   (2 * TRAIN_BATCH, "train: the CFG teacher's [uncond; cond] queries"),
                   (TRAIN_BATCH, "train: target and student queries"),
                   (2 * VAL_BATCH, "validation: the CFG teacher's queries"),
@@ -270,12 +290,13 @@ def main() -> None:
             mutants = {"scale_of_width_64": plain(scale=64 ** -0.5),
                        "last_32_keys_dropped": plain(k=k[:, :-32], v=v[:, :-32])}
             iters = max(2, int(2e4 // s))
+            host = {"host_us": host_us(kern), "library_host_us": host_us(lib)} if b == 1 else {}
             record("flash_mha_packed", f"B={b} S={s} H={h} d={HEAD_WIDTH} (64 padded)",
                    got, want, 2e-2, mutants,
                    cuda_ms(torch, kern, iters), cuda_ms(torch, plain, 1),
                    cuda_ms(torch, lib, iters),
                    4.0 * b * h * s * s * HEAD_WIDTH, 4.0 * b * s * h * HEAD_WIDTH * 2,
-                   per_call, weight=per_call if b == BATCH else 0, path=path)
+                   per_call, weight=per_call if b == BATCH else 0, path=path, **host)
             del qkv, q, k, v, got, want, mutants
     # K1's gradient as the student's backward takes it: q, k and v are slices
     # of one projection that requires grad, the kernel runs under autocast,
@@ -316,7 +337,8 @@ def main() -> None:
     del qkv, g_out, got, want, dq, dk, dv, grad_mutants
     # K2: the VAE mid-block attention, one launch per decode chunk (generate)
     # and one per encoded micro-batch (train, validation)
-    for b, path in ((BATCH, "generate"), (TRAIN_BATCH, "train: the VAE encoder"),
+    for b, path in ((BATCH, "generate"), (1, "generate at batch 1, the interactive shape"),
+                    (TRAIN_BATCH, "train: the VAE encoder"),
                     (VAL_BATCH, "validation: the VAE encoder")):
         qkv = torch.randn(b, 4096, 3 * 512, device=dev, generator=gen).bfloat16()
         q, k, v = qkv.split(512, dim=-1)
@@ -329,10 +351,11 @@ def main() -> None:
         got, want = launch(att.flash_self_attention, kern), plain()
         mutants = {"scale_x1.1": plain(scale=1.1 * scale),
                    "last_32_keys_dropped": plain(k=k[:, :-32], v=v[:, :-32])}
+        host = {"host_us": host_us(kern), "library_host_us": host_us(lib)} if b == 1 else {}
         record("flash_self_attention", f"B={b} S=4096 D=512", got, want, 2e-2, mutants,
                cuda_ms(torch, kern, 3), cuda_ms(torch, plain, 1), cuda_ms(torch, lib, 3),
                4.0 * b * 4096 * 4096 * 512, 4.0 * b * 4096 * 512 * 2, 1,
-               weight=1 if b == BATCH else 0, path=path)
+               weight=1 if b == BATCH else 0, path=path, **host)
         del qkv, q, k, v, got, want, mutants
     # K3: the vocoder's MRF levels; the fused levels (C <= 128) once per chunk.
     # The plain chain has two formulations of its dilated convs (direct, and

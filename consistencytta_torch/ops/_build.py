@@ -4,7 +4,9 @@ Each `csrc/<name>.cu` has a plain C interface and is compiled on its own by
 `nvcc` for Hopper (sm_90a) into `build/lib<name>-<hash>.so` at the root of
 the checkout, where <hash> is a digest of the source, the shared headers
 (`csrc/*.cuh`) and the flags: an edited source gets a new library, and a
-library that exists is reused. The
+library that exists is reused. nvcc's output, with the registers, spills
+and shared memory of every kernel (`-Xptxas -v`), is kept beside the library
+as `<library>.log`; `resources` reads it. The
 libraries are loaded with ctypes; pointers and the stream are passed as
 `c_void_p`, integers as `c_int`, scalars as `c_float`. Every entry point
 launches on the caller's stream and returns `cudaGetLastError()`, which
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -29,7 +32,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(os.path.dirname(_PKG), "build")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SOURCES = ("flash_attention", "mrf", "stft", "dilated_conv")
 
@@ -73,10 +76,47 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
+        with open(f"{out}.log", "w") as f:
+            f.write(log)
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
     return build_seconds
+
+
+def parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel (mangled name) of a `-Xptxas -v` log: registers, bytes of
+    spill stores and loads, stack frame and static shared memory."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = out.setdefault(m.group(1), {})
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            entry.update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                         spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            entry["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def resources(name: str) -> Dict[str, object]:
+    """What ptxas reported at the build of csrc/<name>.cu: `kernels` as
+    `parse_ptxas` gives them and `performance_warnings`, its lines on
+    potential performance loss (serialised wgmma for want of registers)."""
+    load(name)
+    with open(f"{_lib_path(name)}.log") as f:
+        log = f.read()
+    warnings = [line.strip()[:200] for line in log.splitlines() if "Performance Loss" in line]
+    return {"kernels": parse_ptxas(log), "performance_warnings": warnings}
 
 
 def load(name: str) -> ctypes.CDLL:

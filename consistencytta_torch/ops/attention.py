@@ -2,18 +2,32 @@
 
 `flash_mha_packed` (K1) takes q/k/v in the packed [B, S, H*d] layout of one
 fused QKV projection (d = 64: callers pad head width 51 with zero weight
-columns); `flash_self_attention` (K2) takes [BH, S, D] with D = 512 on the
-card (the VAE mid-block's width). Both compute softmax(q k^T * scale) v per
-head, non-causal and unmasked, with fp32 logits and softmax and bf16
-probabilities against v.
+columns) and replaces the JAX package's `ops/pallas_attention.py`
+`flash_mha_packed`; `flash_self_attention` (K2) takes [BH, S, D] with D = 512
+on the card (the VAE mid-block's width) and replaces `flash_self_attention`
+there. Both compute softmax(q k^T * scale) v per head, non-causal and
+unmasked, with fp32 logits and softmax and bf16 probabilities against v.
 
 On a CUDA tensor each wrapper launches its kernel from
 `csrc/flash_attention.cu` (bf16 only) and raises on anything the kernel does
-not take; on a CPU tensor it runs the plain version below. The views may be
-strided along rows (slices of one QKV projection), but the feature axis must
-be contiguous. Gradients flow through a `torch.autograd.Function` whose
-backward differentiates the plain version, as the JAX package's custom VJP
-does with its einsum backward.
+not take; on a CPU tensor it runs the plain version below. On the H100 the
+function is bound by operations (4 S^2 d of them against ~4 S d bytes), so
+both products run as `wgmma` on tiles that TMA copies into 128-byte-swizzled
+shared memory, fed by a producer warp through mbarriers, with the logits kept
+in registers. Every S goes to the one kernel of its function. K1 has two
+shapes: S > 1024 takes 192 query rows a block (three consumer warpgroups)
+against key tiles of 128, S <= 1024 takes 64 query rows (one warpgroup)
+against key tiles of 64, three blocks an SM. K2 takes 64 query rows, their
+512 output columns split over two warpgroups, against key tiles of 32. Rows
+beyond S are filled with zeros by TMA and masked, and are never written.
+
+The views may be strided along rows and batch (slices of one QKV projection,
+a sliced batch), but the feature axis must be contiguous: `kernel_layout`
+turns each view into the (features, S, B) dims and byte strides of the tensor
+map that the C entry point encodes at every launch (three maps, a few
+microseconds of host time). Gradients flow through a
+`torch.autograd.Function` whose backward differentiates the plain version, as
+the JAX package's custom VJP does with its einsum backward.
 """
 
 from __future__ import annotations
@@ -44,46 +58,84 @@ def flash_mha_packed_plain(q, k, v, heads: int, scale: float):
     return out.transpose(1, 2).reshape(b, s, hd)
 
 
-def _check_cuda(name, tensors, shape):
+def kernel_layout(name, tensors, shape):
+    """What the kernel is told of q, k, v (and the output): checked views of
+    shape [B, S, width] as three-axis tensor maps, innermost axis first.
+
+    Returns {"dims": (width, S, B), "row_bytes": [...], "batch_bytes": [...]}
+    with one stride per tensor. A tensor map needs a 16-byte-aligned base, a
+    contiguous innermost axis and strides that are multiples of 16 bytes
+    (8 bf16 elements); anything else raises, as does a dtype other than
+    bfloat16, a second device or a shape other than `shape`."""
+    shape, device = tuple(shape), tensors[0].device
+    row_bytes, batch_bytes = [], []
     for t in tensors:
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
-        if t.device != tensors[0].device:
+        if t.device != device:
             raise ValueError(f"{name}: inputs on different devices")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
-        if t.stride(-1) != 1 or t.stride(1) % 8 or t.stride(0) % 8:
+        if t.shape != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
+        batch, row, feature = t.stride()
+        if feature != 1 or row % 8 or batch % 8 or row <= 0 or batch <= 0:
             raise ValueError(
                 f"{name}: features must be contiguous and row/batch strides "
                 f"multiples of 8 elements, got strides {t.stride()}"
             )
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: data pointer not 16-byte aligned")
+        row_bytes.append(2 * row)  # bfloat16: 2 bytes an element
+        batch_bytes.append(2 * batch)
+    b, s, width = shape
+    return {"dims": (width, s, b), "row_bytes": row_bytes, "batch_bytes": batch_bytes}
 
 
-def _strides(ts):
-    """Row strides, then batch strides, in elements."""
-    return [ctypes.c_int(t.stride(1)) for t in ts] + [
-        ctypes.c_int(t.stride(0)) for t in ts
-    ]
+_STRIDES = ctypes.c_longlong * 4
+_entries = {}
+
+
+def _entry(entry, n_ints):
+    """A C entry point of csrc/flash_attention.cu: (q, k, v, out, n_ints
+    ints, row strides, batch strides, scale, stream) -> CUDA error code."""
+    fn = _entries.get(entry)
+    if fn is None:
+        fn = getattr(_build.load("flash_attention"), entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_ints \
+            + [_STRIDES, _STRIDES, ctypes.c_float, ctypes.c_void_p]
+        _entries[entry] = fn
+    return fn
+
+
+def _launch(entry, name, ts, extra, scale):
+    """Call one C entry point of csrc/flash_attention.cu on (q, k, v, out)."""
+    layout = kernel_layout(name, ts, ts[0].shape)
+    _, s, b = layout["dims"]
+    code = _entry(entry, 2 + len(extra))(
+        *[t.data_ptr() for t in ts], b, s, *extra,
+        _STRIDES(*layout["row_bytes"]), _STRIDES(*layout["batch_bytes"]),
+        scale * LOG2E, torch.cuda.current_stream(ts[0].device).cuda_stream,
+    )
+    _build.check(code, name)
+
+
+def kernel_resources():
+    """What the build gave the three kernels of csrc/flash_attention.cu."""
+    out = (ctypes.c_int * 15)()
+    _build.check(_build.load("flash_attention").flash_attention_resources(out),
+                 "flash_attention_resources")
+    keys = ("registers", "local_bytes", "static_smem_bytes", "dynamic_smem_bytes", "threads")
+    names = ("mha_packed_kernel, S > 1024", "mha_packed_kernel, S <= 1024",
+             "self_attention_kernel")
+    return {n: dict(zip(keys, out[5 * i:5 * i + 5])) for i, n in enumerate(names)}
 
 
 def _mha_packed_cuda(q, k, v, heads: int, scale: float):
     b, s, hd = q.shape
     if hd % heads or hd // heads != 64:
         raise ValueError(f"flash_mha_packed: head width must be 64, got {hd}/{heads}")
-    _check_cuda("flash_mha_packed", (q, k, v), (b, s, hd))
     out = torch.empty((b, s, hd), dtype=q.dtype, device=q.device)
-    lib = _build.load("flash_attention")
-    fn = lib.flash_mha_packed_fwd
-    fn.restype = ctypes.c_int
-    ts = (q, k, v, out)
-    code = fn(
-        *[ctypes.c_void_p(t.data_ptr()) for t in ts],
-        ctypes.c_int(b), ctypes.c_int(s), ctypes.c_int(heads), ctypes.c_int(64),
-        *_strides(ts), ctypes.c_float(scale * LOG2E), _build.stream_ptr(q.device),
-    )
-    _build.check(code, "flash_mha_packed")
+    _launch("flash_mha_packed_fwd", "flash_mha_packed", (q, k, v, out), (heads, 64), scale)
     flash_mha_packed.launches += 1
     return out
 
@@ -92,18 +144,8 @@ def _self_attention_cuda(q, k, v, scale: float):
     bh, s, d = q.shape
     if d != 512:
         raise ValueError(f"flash_self_attention: the kernel takes D = 512, got {d}")
-    _check_cuda("flash_self_attention", (q, k, v), (bh, s, d))
     out = torch.empty((bh, s, d), dtype=q.dtype, device=q.device)
-    lib = _build.load("flash_attention")
-    fn = lib.flash_self_attention_fwd
-    fn.restype = ctypes.c_int
-    ts = (q, k, v, out)
-    code = fn(
-        *[ctypes.c_void_p(t.data_ptr()) for t in ts],
-        ctypes.c_int(bh), ctypes.c_int(s), ctypes.c_int(d),
-        *_strides(ts), ctypes.c_float(scale * LOG2E), _build.stream_ptr(q.device),
-    )
-    _build.check(code, "flash_self_attention")
+    _launch("flash_self_attention_fwd", "flash_self_attention", (q, k, v, out), (d,), scale)
     flash_self_attention.launches += 1
     return out
 

@@ -127,3 +127,85 @@ def test_attention_module_matches_jax(cross):
                 None if mask_bias is None else torch.from_numpy(mask_bias))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
+
+
+# -- the layout the wrappers hand the kernels (pure, runs on CPU tensors) ------
+
+def _projection(b, s, width, longer=0):
+    """q, k, v as the modules make them: thirds of one fused projection of
+    s + longer rows, cut back to s rows."""
+    qkv = torch.zeros(b, s + longer, 3 * width, dtype=torch.bfloat16)
+    return qkv[:, :s].split(width, dim=-1)
+
+
+@pytest.mark.parametrize("b,s,heads,longer", [(2, 200, 5, 0), (1, 64, 20, 0), (3, 77, 2, 51)])
+def test_kernel_layout_of_split_views(b, s, heads, longer):
+    """Thirds of a fused projection, whole or cut from a longer one (batch
+    stride other than S x row stride), and a contiguous output."""
+    width = heads * 64
+    q, k, v = _projection(b, s, width, longer)
+    out = torch.empty(b, s, width, dtype=torch.bfloat16)
+    layout = ops.kernel_layout("flash_mha_packed", (q, k, v, out), (b, s, width))
+    row = 3 * width * 2
+    assert layout == {
+        "dims": (width, s, b),
+        "row_bytes": [row, row, row, width * 2],
+        "batch_bytes": [(s + longer) * row] * 3 + [s * width * 2],
+    }
+    assert (k.data_ptr() - q.data_ptr(), v.data_ptr() - q.data_ptr()) == (width * 2, width * 4)
+
+
+def test_kernel_layout_of_a_sliced_batch_and_of_k2():
+    q, k, v = (t[1:3] for t in _projection(4, 100, 512))
+    layout = ops.kernel_layout("flash_self_attention", (q, k, v), (2, 100, 512))
+    assert layout["dims"] == (512, 100, 2)
+    assert layout["row_bytes"] == [3 * 512 * 2] * 3
+    assert layout["batch_bytes"] == [100 * 3 * 512 * 2] * 3
+    assert q.data_ptr() % 16 == 0
+
+
+def _refused_views():
+    q, k, v = _projection(2, 40, 128)
+    fp32 = torch.zeros(2, 40, 128)
+    transposed = torch.zeros(2, 128, 40, dtype=torch.bfloat16).transpose(1, 2)
+    misaligned = torch.zeros(2, 40, 136, dtype=torch.bfloat16)[..., 4:132]
+    odd_rows = torch.zeros(2, 40, 132, dtype=torch.bfloat16)[..., :128]
+    broadcast = torch.zeros(1, 40, 128, dtype=torch.bfloat16).expand(2, 40, 128)
+    return {
+        "float32": ((fp32, fp32, fp32), TypeError, "bfloat16"),
+        "another_shape": ((q, k[:, :32], v), ValueError, "shape"),
+        "features_not_contiguous": ((q, transposed, v), ValueError, "strides"),
+        "row_stride_not_a_multiple_of_8": ((q, k, odd_rows), ValueError, "strides"),
+        "batch_stride_zero": ((broadcast, k, v), ValueError, "strides"),
+        "pointer_not_16_byte_aligned": ((q, k, misaligned), ValueError, "aligned"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_refused_views()))
+def test_kernel_layout_refuses(case):
+    tensors, exception, match = _refused_views()[case]
+    with pytest.raises(exception, match=match):
+        ops.kernel_layout("flash_mha_packed", tensors, (2, 40, 128))
+
+
+def test_parse_ptxas_log():
+    from consistencytta_torch.ops import _build
+
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async instructions are serialized
+ptxas info    : Compiling entry function '_Z6kernelILi128EEvPf' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelILi128EEvPf
+    64 bytes stack frame, 48 bytes spill stores, 56 bytes spill loads
+ptxas info    : Used 168 registers, used 2 barriers, 64 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z5otherv' for 'sm_90a'
+ptxas info    : Function properties for _Z5otherv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 4096 bytes smem
+"""
+    assert _build.parse_ptxas(log) == {
+        "_Z6kernelILi128EEvPf": {"stack_bytes": 64, "spill_store_bytes": 48,
+                                 "spill_load_bytes": 56, "registers": 168,
+                                 "static_smem_bytes": 0},
+        "_Z5otherv": {"stack_bytes": 0, "spill_store_bytes": 0, "spill_load_bytes": 0,
+                      "registers": 40, "static_smem_bytes": 4096},
+    }

@@ -51,7 +51,9 @@ def assert_close_rel(got, want, tol_max):
     assert ((got - want).norm() / want.norm()).item() <= TOL_L2
 
 
-@pytest.mark.parametrize("b,h,s", [(2, 5, 1024), (1, 20, 200), (2, 20, 64), (1, 3, 77)])
+@pytest.mark.parametrize("b,h,s", [(2, 5, 1024), (1, 20, 200), (2, 20, 64), (1, 3, 77),
+                                   (2, 5, 4096), (1, 2, 127), (1, 2, 129), (1, 5, 4095),
+                                   (2, 20, 256), (1, 3, 300)])
 def test_flash_mha_packed(gen, b, h, s):
     qkv = torch.randn(b, s, 3 * h * 64, device="cuda", generator=gen).bfloat16()
     q, k, v = qkv.split(h * 64, dim=-1)
@@ -87,12 +89,55 @@ def test_flash_mha_packed_gradient_under_autocast_is_the_plain_gradient(gen, b, 
         assert_close_rel(torch.cat([dq, dv, dk], dim=-1), want, 2e-2)
 
 
-@pytest.mark.parametrize("b,s", [(2, 4096), (1, 300), (1, 200), (2, 77)])
+@pytest.mark.parametrize("b,s", [(2, 4096), (1, 300), (1, 200), (2, 77), (1, 4095), (1, 64)])
 def test_flash_self_attention(gen, b, s):
     qkv = torch.randn(b, s, 3 * 512, device="cuda", generator=gen).bfloat16()
     q, k, v = qkv.split(512, dim=-1)
+    before = ops.flash_self_attention.launches
     got = ops.flash_self_attention(q, k, v, 512 ** -0.5)
+    assert ops.flash_self_attention.launches == before + 1
     assert_close_rel(got, ops.attention_plain(q, k, v, 512 ** -0.5), 2e-2)
+
+
+@pytest.mark.parametrize("s,longer", [(200, 56), (1000, 24), (129, 1)])
+def test_attention_on_views_of_a_longer_projection(gen, s, longer):
+    """q, k, v cut from a projection of s + longer rows and from the middle of
+    its batch: the batch stride is not S x the row stride, and the kernel
+    must not read the rows beyond S (they hold large values here)."""
+    for width, heads in ((5 * 64, 5), (512, None)):
+        qkv = torch.randn(4, s + longer, 3 * width, device="cuda", generator=gen).bfloat16()
+        qkv[:, s:] = 1e4
+        q, k, v = qkv[1:3, :s].split(width, dim=-1)
+        assert q.stride(0) != s * q.stride(1)
+        if heads:
+            got = ops.flash_mha_packed(q, k, v, heads, 51 ** -0.5)
+            want = ops.flash_mha_packed_plain(q, k, v, heads, 51 ** -0.5)
+        else:
+            got = ops.flash_self_attention(q, k, v, 512 ** -0.5)
+            want = ops.attention_plain(q, k, v, 512 ** -0.5)
+        assert_close_rel(got, want, 2e-2)
+
+
+@pytest.mark.parametrize("entry,name,width,extra,s", [
+    ("flash_mha_packed_fwd", "flash_mha_packed", 3 * 64, (3, 64), 77),
+    ("flash_mha_packed_fwd", "flash_mha_packed", 2 * 64, (2, 64), 333),
+    ("flash_self_attention_fwd", "flash_self_attention", 512, (512,), 77),
+    ("flash_self_attention_fwd", "flash_self_attention", 512, (512,), 300),
+])
+def test_rows_at_or_beyond_s_are_never_written(gen, entry, name, width, extra, s):
+    """The output of a ragged S lands in the first S rows of a longer buffer
+    filled with a sentinel; every row from S on keeps the sentinel."""
+    b, rows = 2, 512
+    qkv = torch.randn(b, s, 3 * width, device="cuda", generator=gen).bfloat16()
+    q, k, v = qkv.split(width, dim=-1)
+    buffer = torch.full((b, rows, width), -7.0, device="cuda", dtype=torch.bfloat16)
+    scale = 51 ** -0.5 if len(extra) == 2 else 512 ** -0.5
+    ops._launch(entry, name, (q, k, v, buffer[:, :s]), extra, scale)
+    torch.cuda.synchronize()
+    assert (buffer[:, s:] == -7.0).all()
+    want = ops.flash_mha_packed_plain(q, k, v, extra[0], scale) if len(extra) == 2 \
+        else ops.attention_plain(q, k, v, scale)
+    assert_close_rel(buffer[:, :s], want, 2e-2)
 
 
 def test_kernels_refuse_what_they_do_not_take(gen):
