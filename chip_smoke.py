@@ -8,8 +8,8 @@ source, in parallel, into `build/`), then runs five phases, each printing
 JSON lines:
 
   env      card name and power limit (nvidia-smi), torch / CUDA versions,
-           kernel build seconds, and the attention kernels' registers,
-           spills and shared memory;
+           kernel build seconds, and the attention, MRF and STFT kernels'
+           registers, spills and shared memory;
   kernel   each kernel against its plain PyTorch version on the same inputs
            at the shapes the driven paths give it (bf16; batch 32 and 1 for
            the generate path, 16 and 8 for the train step, 4 and 2 for the
@@ -24,13 +24,16 @@ JSON lines:
            CUDA-event times of the kernel, the plain version,
            one PyTorch library call computing the same function (SDPA for
            attention; none for the MRF level) and the bound (the larger of
-           bytes over 3.35 TB/s and operations over 989 TFLOP/s). The STFT
+           bytes over 3.35 TB/s and operations over 989 TFLOP/s). The MRF
+           level also runs at the C = 256 and 512 levels of batch 32, which
+           the generate path leaves to the plain chain. The STFT
            magnitude (float32, B = 8, 2 and 32 ten-second clips) is held to
            float32 grade, 1e-5 of the largest output, against planted
            single-pass bf16 and TF32 products, zero padding and a dropped
-           window tail; its library call is torch.stft and its operations
-           are counted at 165 TFLOP/s, a third of the TF32 rate (three TF32
-           passes are the fastest arithmetic of that accuracy). The
+           window tail; its library call is torch.stft, its kernel is an FFT
+           whose operations are counted at the 67 TFLOP/s FP32 rate (the
+           bytes bound it), and a replayed CUDA graph gives its device time
+           without the host's launch. The
            standalone dilated conv runs at B = 32, C = 64, L = 81936 for its
            six (k, d) pairs, beside F.conv1d;
   main     the main path: Pipeline.create at the full PipelineConfig
@@ -72,6 +75,7 @@ import time
 
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_FLOPS_3XTF32 = 495e12 / 3  # float32-grade products as three TF32 passes
+PEAK_FLOPS_FP32 = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
 BATCH = 32
 TEXT_LEN = 64
@@ -149,6 +153,7 @@ def main() -> None:
         from consistencytta_torch.configs import PipelineConfig
         from consistencytta_torch.inference.generate import GenerateConfig, build_generate_fn
         from consistencytta_torch.models.pipeline import Pipeline
+        from consistencytta_torch.nn.hifigan import FUSE_MAX_CHANNELS
         from consistencytta_torch.ops import _build
         from consistencytta_torch.ops import attention as att
         from consistencytta_torch.ops import dilated_conv as dconv
@@ -175,9 +180,12 @@ def main() -> None:
         "build_wall_seconds": round(time.perf_counter() - t0, 2),
         "clocks_power": nvidia_smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu"),
         # registers, spills and shared memory of the attention kernels: what the
-        # loaded library reports, and what ptxas printed when it was built
+        # loaded library reports, and what ptxas printed when it was built; of
+        # the MRF and STFT kernels, what ptxas printed
         "attention_kernels": att.kernel_resources(),
         "attention_ptxas": _build.resources("flash_attention"),
+        "mrf_ptxas": _build.resources("mrf"),
+        "stft_ptxas": _build.resources("stft"),
     })
 
     # -- kernels against their plain versions ---------------------------------
@@ -248,6 +256,21 @@ def main() -> None:
         """Run fn over batch chunks of n rows: bounds the plain version's
         [S, S] logits at the large shapes."""
         return torch.cat([fn(*(t[i:i + n] for t in ts)) for i in range(0, ts[0].shape[0], n)])
+
+    def graph_ms(fn, launches: int = 20):
+        """Device time of one call with the host out of the way: `launches`
+        calls captured in a CUDA graph, the graph replayed and timed. None,
+        with the reason, where the capture is refused."""
+        try:
+            fn()
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(launches):
+                    fn()
+            return cuda_ms(torch, graph.replay, 5) / launches, None
+        except RuntimeError as e:
+            return None, str(e)[:200]
 
     def host_us(fn, calls: int = 200) -> float:
         """Microseconds of host time one call takes to queue its work (the
@@ -357,12 +380,16 @@ def main() -> None:
                4.0 * b * 4096 * 4096 * 512, 4.0 * b * 4096 * 512 * 2, 1,
                weight=1 if b == BATCH else 0, path=path, **host)
         del qkv, q, k, v, got, want, mutants
-    # K3: the vocoder's MRF levels; the fused levels (C <= 128) once per chunk.
-    # The plain chain has two formulations of its dilated convs (direct, and
-    # split into phases); plain_ms is the faster of the two at each shape.
+    # K3: the vocoder's MRF levels; the fused levels (C <= FUSE_MAX_CHANNELS)
+    # once per generate call, the wider ones (C = 256, 512) measured beside
+    # the plain chain they run on. The plain chain has two formulations of its
+    # dilated convs (direct, and split into phases); plain_ms is the faster of
+    # the two at each shape. weight_l2_gb: the weight units the kernel
+    # streams from L2 at the shape (every unit once per tile).
     ks, ds = (3, 7, 11), ((1, 3, 5),) * 3
-    for c, length, b, per_call in ((128, 40968, BATCH, 1), (64, 81936, BATCH, 1),
-                                   (32, 163872, BATCH, 1), (512, 2048, 2, 0)):
+    for c, length, b in ((128, 40968, BATCH), (64, 81936, BATCH), (32, 163872, BATCH),
+                         (256, 20484, BATCH), (512, 5121, BATCH), (512, 2048, 2)):
+        per_call = int(c <= FUSE_MAX_CHANNELS and b == BATCH)
         x = (torch.randn(b, c, length, device=dev, generator=gen) * 0.5).bfloat16()
         ws = [(torch.randn(c, c, kk, device=dev, generator=gen) / (c * kk) ** 0.5).bfloat16()
               for kk in ks for _ in range(6)]
@@ -382,15 +409,24 @@ def main() -> None:
         }
         direct_ms, split_ms = cuda_ms(torch, direct, 2), cuda_ms(torch, split, 2)
         wbytes = sum(w.numel() * 2 for w in ws) + 18 * c * 2
+        t_plan, rows, in_smem = mrf.tile_plan(c, length, ks, ds)
         record("fused_mrf_level", f"B={b} C={c} L={length}", got, want, 3e-2, mutants,
                cuda_ms(torch, kern, 2), min(direct_ms, split_ms), None,
                float(mrf.mrf_flops(b, c, length, ks, ds)), 2.0 * x.numel() * 2 + wbytes,
-               per_call, plain_direct_ms=direct_ms, plain_phase_split_ms=split_ms)
+               per_call, plain_direct_ms=direct_ms, plain_phase_split_ms=split_ms,
+               tile=t_plan, buffers_in_smem=in_smem,
+               smem_bytes=mrf.smem_bytes(c, rows, in_smem),
+               weight_l2_gb=mrf.weight_l2_bytes(b, c, length, ks, ds) / 1e9)
         del x, ws, bs, got, want, tile, unzeroed, mutants
     # K4: the mel frontend's STFT magnitude on 10-s clips, float32 in and out;
     # once per train micro-batch (B = 8). The plain version is one float32
     # matmul with TF32 off; the faults are that product in one low-precision
     # pass, zero padding in place of reflect, and a window cut 64 samples short.
+    # The kernel is an FFT: its bound is the bytes it must move (the waveform
+    # read once, the magnitudes written once; its FFT operations at the FP32
+    # rate take less), and dft_bound_ms keeps the bound of the DFT product
+    # that the plain version and K4's earlier design computed. device_ms: the
+    # kernel's time from a replayed CUDA graph, without the host's launch.
     stft_cfg = PipelineConfig().stft
     frontend = stft.MelFrontend(stft_cfg, device=dev)
     cos_b, sin_b = frontend.cos_basis, frontend.sin_basis
@@ -427,13 +463,18 @@ def main() -> None:
             "window_tail_dropped": plain(c=cos_b * tail, s_=sin_b * tail),
         }
         n_frames, n_bins = want.shape[1:]
+        nbytes = 4.0 * (wav.numel() + want.numel())
+        device_ms, graph_error = graph_ms(kern)
         record("stft_magnitude", f"B={b} T={samples} frames={n_frames} bins={n_bins}",
                got, want, TOL_STFT, mutants,
-               cuda_ms(torch, kern, 3), cuda_ms(torch, plain, 3), cuda_ms(torch, lib, 3),
-               float(stft.stft_flops(b, n_frames, win, n_bins)),
-               4.0 * (wav.numel() + want.numel() + 2 * cos_b.numel()),
-               per_call, peak=PEAK_FLOPS_3XTF32, library_max_abs_diff=lib_err,
-               operations_rate="495 TFLOP/s TF32 dense / 3 passes")
+               cuda_ms(torch, kern, 20), cuda_ms(torch, plain, 3), cuda_ms(torch, lib, 20),
+               float(stft.stft_fft_flops(b, n_frames, win)), nbytes,
+               per_call, peak=PEAK_FLOPS_FP32, library_max_abs_diff=lib_err,
+               operations_rate="67 TFLOP/s FP32", device_ms=device_ms,
+               device_ms_error=graph_error, host_us=host_us(kern),
+               smem_bytes=stft.fft_smem_bytes(hop),
+               dft_bound_ms=bound(float(stft.stft_flops(b, n_frames, win, n_bins)),
+                                  nbytes + 8.0 * cos_b.numel(), PEAK_FLOPS_3XTF32)[0])
         del wav, got, want, mutants
     # K5: the standalone dilated conv at the vocoder's C = 64 level; nothing
     # dispatches it, so it has no launches on any path and its summed times
@@ -511,8 +552,11 @@ def main() -> None:
                 fail(f"batch-{batch} waveform shape {tuple(wav.shape)} or non-finite values")
     wav32 = wav
     launches = read_counters()
+    voc = config.vocoder
+    fused_levels = sum(voc.upsample_initial_channel // 2 ** (i + 1) <= FUSE_MAX_CHANNELS
+                       for i in range(len(voc.upsample_rates)))
     expected = {"flash_mha_packed": 16 * calls, "flash_self_attention": calls,
-                "fused_mrf_level": 3 * calls, "stft_magnitude": 0, "dilated_conv1d": 0}
+                "fused_mrf_level": fused_levels * calls, "stft_magnitude": 0, "dilated_conv1d": 0}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     if launches != expected:
         fail(f"launch counts {launches} != expected {expected}")

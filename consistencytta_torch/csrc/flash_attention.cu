@@ -65,12 +65,7 @@
 // Compile with -DFA_BOUNDED_WAIT to let a wait on an mbarrier give up after
 // 2^24 polls: a wrong phase then gives wrong numbers instead of a hung card.
 
-#include <cuda.h>  // CUtensorMap and its enums; libcuda is reached at run time
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "hopper_async.cuh"
+#include "hopper_async.cuh"  // with cuda.h's CUtensorMap and encode_tiled
 
 namespace {
 
@@ -484,30 +479,6 @@ self_attention_kernel(const __grid_constant__ CUtensorMap map_q,
 
 // ---------------------------------------------------------------------------
 // host side: tensor maps and launches
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the libcuda that the process has loaded; this
-// library links none.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
 
 constexpr int ERR_NO_ENCODER = 2000;  // libcuda has no cuTensorMapEncodeTiled
 constexpr int ERR_ENCODE = 3000;      // + the CUresult of a refused tensor map

@@ -1,7 +1,8 @@
-// Hopper-only (sm_90a) building blocks of csrc/flash_attention.cu: mbarriers,
-// TMA tile loads through a tensor map, the wgmma shared-memory descriptor for
+// Hopper-only (sm_90a) building blocks of csrc/flash_attention.cu and
+// csrc/mrf.cu: mbarriers, TMA tile loads through a tensor map (and the host's
+// cuTensorMapEncodeTiled), the wgmma shared-memory descriptor for
 // 128-byte-swizzled tiles, the asynchronous warpgroup products (bf16 in, fp32
-// accumulators in registers), named barriers and setmaxnreg.
+// accumulators in registers), ldmatrix, named barriers and setmaxnreg.
 //
 // Tile layout. A TMA box of R rows x 64 bf16 columns (128 bytes a row) loaded
 // with CU_TENSOR_MAP_SWIZZLE_128B lands as R consecutive 128-byte lines whose
@@ -18,6 +19,7 @@
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; libcuda is reached at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -88,6 +90,50 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map, uint64_t
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the libcuda that the process has loaded; the
+// libraries link none. Null when the driver has none.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// ---------------------------------------------------------------------------
+// ldmatrix: four 8x8 bf16 matrices, lane l giving the address of row l % 8 of
+// matrix l / 8; r[i] is this lane's part of matrix i (the mma/wgmma A layout
+// when the matrices are rows 0-7 and 8-15 at columns 0-7, then at 8-15)
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
 }
 
 // ---------------------------------------------------------------------------
@@ -235,6 +281,47 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
       "}, {%128,%129,%130,%131}, %132, p, 1, 1, 1;\n"
       "}\n"
       : WG_D128(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x N) += a (64 x 16, registers) * b (N x 16, shared, K-major): b's N
+// rows of 16 reduction values, as a 128-byte-swizzled tile of 64 columns
+__device__ __forceinline__ void wgmma_rs_kmajor_n32(float (&d)[16], const uint32_t (&a)[4],
+                                                    uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {" WG_R16_0
+      "}, {%16,%17,%18,%19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : WG_D16(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_kmajor_n64(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_R32
+      "}, {%32,%33,%34,%35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : WG_D32(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_kmajor_n128(float (&d)[64], const uint32_t (&a)[4],
+                                                     uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_R64
+      "}, {%64,%65,%66,%67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : WG_D64(d, 0)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 

@@ -12,40 +12,62 @@
 // accumulates in fp32 and rounds to bf16, then the bias add, the leaky
 // relu, the residual add, the 3-way sum and the division each round to bf16.
 //
-// What bounds it on the H100: unfused, the level reads and writes its
-// [B, C, L] activation some 20 times (once per conv and relu pass) against
-// 6 * 21 * 2 * C^2 operations per sample; at C = 32 and 64 that is below the
-// card's ~295 operations per byte, so the plain chain is bound by memory.
-// Fused, the level reads x once and writes y once, and what bounds it is
-// operations: the convs run as per-tap matrix products on the tensor cores,
-// positions x input channels against input channels x output channels.
+// What bounds it on the H100: fused, the level reads x once and writes y
+// once against 6 * 21 * 2 * C^2 operations a sample, so it is bound by
+// operations, and only wgmma reaches the tensor cores' full rate. The convs
+// run as per-tap matrix products: positions x (tap, input channel) against
+// (tap, input channel) x output channels, K = k * C deep.
 //
-// Layout and tiling: the activation stays in its natural [B, C, L] layout in
-// device memory. One block takes T output positions of one batch row; each
-// ResBlock recomputes a halo of H_k = (k-1)/2 * (1+3+5) + 3*(k-1)/2 positions
-// on each side (60 for k = 11), so that every conv of the chain has its
-// whole receptive field in the block and no intermediate leaves it. The
-// intermediates sit position-major ([pos][C + 8], channels contiguous, the
-// 8-element pad puts the rows of a fragment on distinct banks) in two
-// buffers: xb and the first conv's output (lrelu(xb) is applied to the
-// fragments in registers, never stored). They live in shared memory when
-// both buffers of T + 2*H + 16 rows fit, with T as large as fits up to 512
-// (512 at C = 32 and 64, 224 at C = 128); at wider C (the C = 256 and 512
-// levels) they live in a per-block slice of a device workspace that the
-// caller allocates (T = 64), and the blocks loop over tiles. The weights do
-// not fit beside them (one
-// k = 11 conv at C = 128 is 352 KB; the level's 18 convs, 1.4 MB, stay
-// resident in L2): they stream through shared memory in units of one tap x
-// 64 input channels x <= 128 output channels, double-buffered with cp.async
-// so the next unit loads while the current one is used. The products are
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate): each warp holds MR row
-// chunks of 16 positions x all <= 128 output channels of the pass in
-// registers (MR = 4, 2, 1 at C = 32, 64, >= 128), and the epilogue (bias,
-// rounding, leaky relu, edge mask, residual) works on those registers.
-// Known gaps: the halo is recomputed (about 1.2x the useful work at C = 128,
-// T = 224), and there is no warp specialisation or wgmma.
+// Design. One block takes T output positions of one batch row (a block per
+// tile; with the intermediates in a device workspace, a block loops over
+// tiles). Each ResBlock recomputes a halo of H_k = sum_d (d + 1)(k - 1)/2
+// positions on each side (60 for k = 11), so that every conv of the chain
+// has its whole receptive field in the block and no intermediate leaves it.
+// The block is two consumer warpgroups and a producer warpgroup (setmaxnreg
+// moves the producer's registers to the consumers; ptxas compiles the whole
+// kernel at 168 a thread, which bounds the accumulators a consumer holds:
+// products committed two 16-deep steps at a time spilled and ran slower):
+//   - One producer thread keeps a ring of STAGES weight units full by TMA,
+//     each unit CO = min(C, 128) output channels x 64 reduction values (one
+//     tap x 64 input channels, or two taps x 32 at C = 32) of one conv,
+//     128-byte swizzled, in the order the consumers take them (conv by conv
+//     of the whole tile), so the next conv's first units load during this
+//     conv's epilogue. The 18 weights are packed once per weight version by
+//     the host (ops/mrf.py:packed_weights) as [18 * C_out][taps * C_in],
+//     K-major.
+//   - The consumers hold the accumulators of EVERY row of the conv's output
+//     range: warpgroup w takes the 64-row m-tiles w, w + 2, ... (MT each:
+//     6, 4, 2 at C = 32, 64, >= 128), so every staged weight unit feeds all
+//     rows of the block and is read from L2 once per tile, not once per
+//     round of rows. Per 16 reduction values a warp loads its A fragment (16
+//     positions x 16 channels) with ldmatrix at rows shifted by t * d, which
+//     a swizzled descriptor cannot address, and issues wgmma with A from
+//     registers and the weight unit as B (N = CO). A fragments are
+//     double-buffered, so the next step's ldmatrix runs while this step's
+//     products are in flight; no block-wide barrier sits in the reduction,
+//     only the ring's mbarriers. Every m-tile is computed whether or not the
+//     conv's range reaches it: ptxas serialises a wgmma under a branch.
+//   - Two buffers, position-major ([pos][C + 8]: channels contiguous, the
+//     8-element pad puts the rows of an ldmatrix on distinct banks): X, the
+//     residual xb, and A, the next conv's input already through its leaky
+//     relu, so the relu is applied once per element, in an epilogue, not at
+//     every tap. A conv's result overwrites A in place once both warpgroups
+//     are done reading it; the second conv of a pair adds into X and writes
+//     lrelu(X) to A. The epilogue (bias, bf16 rounding, leaky relu, edge
+//     mask, residual) works on the accumulator registers. With one output
+//     pass (C <= 128) the buffers live in shared memory (T = 656, 400, 144
+//     at C = 32, 64, 128); wider levels take several passes over the input,
+//     so a third buffer takes the result and the buffers live in a device
+//     workspace, where the A fragments come from plain loads.
+//   - x is staged with 16-byte loads and a transposing store; y, which holds
+//     the running bf16 sum of the three ResBlocks, is read and written with
+//     16-byte accesses, four in flight a thread.
+// Known gaps: the halo is recomputed (T + 2 H_k rows for T outputs; at C =
+// 128 the accumulators of 256 rows bound T to 144), the epilogues leave the
+// tensor cores idle, and the weights are streamed once per tile from L2 (no
+// cluster multicast, no persistent grid).
 
-#include "mma_common.cuh"
+#include "hopper_async.cuh"
 
 // Kernel sizes of the three ResBlocks and their dilations, by value.
 struct MrfPlan {
@@ -55,8 +77,14 @@ struct MrfPlan {
 
 namespace {
 
-constexpr int NWARPS = 8;
-constexpr int NT = NWARPS * 32;
+constexpr int NCW = 2;                 // consumer warpgroups
+constexpr int NT = (NCW + 1) * 128;    // and the producer's
+constexpr int PRODUCER_REGS = 40;      // registers a thread after setmaxnreg:
+constexpr int CONSUMER_REGS = 232;     // (2 * 232 + 40) * 128 <= 65536
+constexpr int STAGES = 4;           // weight units in the ring
+constexpr int KU = 64;              // reduction values a weight unit
+constexpr int ROW_BYTES = 128;      // one 64-value row of a unit
+constexpr int BAR_BYTES = 128;      // the ring's mbarriers
 
 __device__ __forceinline__ bf16 lrelu(bf16 v, float slope) {
   const float f = __bfloat162float(v);
@@ -67,265 +95,479 @@ __device__ __forceinline__ bf16 badd(bf16 a, bf16 b) {
   return __float2bfloat16(__bfloat162float(a) + __bfloat162float(b));
 }
 
-__device__ __forceinline__ uint32_t lrelu2(uint32_t v, float slope) {
-  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
-  h.x = lrelu(h.x, slope);
-  h.y = lrelu(h.y, slope);
-  return *reinterpret_cast<uint32_t*>(&h);
+// The same on pairs: the sum and the product by the slope in fp32, each
+// rounded once to bf16, as the plain chain's bf16 tensor ops round them.
+__device__ __forceinline__ __nv_bfloat162 badd2(__nv_bfloat162 a, __nv_bfloat162 b) {
+  const float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
+  return __floats2bfloat162_rn(fa.x + fb.x, fa.y + fb.y);
 }
 
-__host__ __device__ constexpr int co_width(int C) { return C < 128 ? C : 128; }
-__host__ __device__ constexpr int ci_width(int C) { return C < 64 ? C : 64; }
+__device__ __forceinline__ __nv_bfloat162 lrelu2(__nv_bfloat162 v, float slope) {
+  const float2 f = __bfloat1622float2(v);
+  const __nv_bfloat162 n = __floats2bfloat162_rn(f.x * slope, f.y * slope);
+  return __halves2bfloat162(f.x > 0.f ? v.x : n.x, f.y > 0.f ? v.y : n.y);
+}
+
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  wgmma_rs_kmajor_n32(d, a, b);
+}
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  wgmma_rs_kmajor_n64(d, a, b);
+}
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  wgmma_rs_kmajor_n128(d, a, b);
+}
+
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
+}
+
+struct Ring {
+  uint64_t full[STAGES], empty[STAGES];
+};
+
+// A fragment of 16 positions x 16 channels of `in` ([rows][ld] bf16):
+// positions r0 .. r0 + 15 (clamped below `rows`: the rows past a conv's
+// range are computed but never stored), channels c0 .. c0 + 15.
+template <bool SMEM>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* in, int ld, int r0,
+                                       int c0, int rows, int lane) {
+  if (SMEM) {
+    const int r = min(r0 + (lane & 15), rows - 1);
+    ldsm_x4(a, in + (size_t)r * ld + c0 + (lane >> 4) * 8);
+  } else {
+    const int g = lane >> 2, t4 = lane & 3;
+    const int ra = min(r0 + g, rows - 1), rb = min(r0 + g + 8, rows - 1);
+    const bf16* pa = in + (size_t)ra * ld + c0 + 2 * t4;
+    const bf16* pb = in + (size_t)rb * ld + c0 + 2 * t4;
+    a[0] = *reinterpret_cast<const uint32_t*>(pa);
+    a[1] = *reinterpret_cast<const uint32_t*>(pb);
+    a[2] = *reinterpret_cast<const uint32_t*>(pa + 8);
+    a[3] = *reinterpret_cast<const uint32_t*>(pb + 8);
+  }
+}
+
+// What a consumer thread knows of its block.
+struct Consumer {
+  bf16* X;  // the residual xb, [rows][ld]
+  bf16* A;  // the next conv's input, already through its leaky relu
+  bf16* O;  // where the conv's result goes: A itself (in place) or a third buffer
+  Ring* ring;
+  uint64_t desc0;  // wgmma descriptor of stage 0
+  int ld, rows, C, L, g0, wg, wq, lane;
+  float slope;
+  uint32_t it;  // weight units consumed so far
+};
 
 // One conv of the chain over output rows [lo, hi) of the block's extent:
-//   FIRST:  Bb[j] = mask(lrelu(bf16(sum_t W[t] . lrelu(X[j - p + t*d])) + b))
-//   !FIRST: X[j] += mask(bf16(sum_t W[t] . Bb[j - p + t]) + b)
-// (W[t] is [C_in][C_out]; the input's leaky relu is applied to the A
-// fragments in registers, so lrelu(X) is never stored.)
-// Output channels go in passes of CO = 8*NF8 (<= 128); within one, the
-// 16-row chunks go in rounds of NWARPS*MR. Buffers may be in shared or device
-// memory (plain loads and stores); Ws is two weight units in shared memory.
-template <int NF8, int MR, bool FIRST>
-__device__ void conv_stage(bf16* X, bf16* Bb, bf16* Ws, int ld, int lo, int hi, int k,
-                           int d, const bf16* __restrict__ W,
-                           const bf16* __restrict__ bias, int C, int g0, int L,
-                           float slope) {
-  constexpr int CO = 8 * NF8;
-  constexpr int LDW = CO + 8;
-  const int KC = ci_width(C), n_ci = C / KC, n_units = k * n_ci;
-  const int unit = KC * LDW;  // elements of one weight buffer
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
+//   FIRST:  O[j] = mask(lrelu(bf16(sum_t W[t] . A[j - p + t*d]) + b))
+//   !FIRST: X[j] += mask(bf16(sum_t W[t] . A[j - p + t]) + b); O[j] = lrelu(X[j])
+// then O is the next conv's A. With the buffers in shared memory the width
+// is one pass (C == CO) and O is A: the result overwrites the input once
+// both warpgroups are done reading it. In the workspace, O is a third
+// buffer and the two swap.
+template <int CO, int MT, bool FIRST, bool SMEM>
+__device__ __forceinline__ void conv_stage(Consumer& cs, int lo, int hi, int k, int d,
+                                           const bf16* __restrict__ bias) {
+  constexpr int NACC = CO / 2;
+  constexpr int UNIT_BYTES = CO * ROW_BYTES;
+  const int C = cs.C, ld = cs.ld;
+  const int n_units = (k * C + KU - 1) / KU;
   const int p = d * (k - 1) / 2;
-  const int n_rc = (hi - lo + 15) / 16;
-  const bf16* in = FIRST ? X : Bb;
+  const int n_mt = (hi - lo + 63) / 64;
+  const int g = cs.lane >> 2, t4 = cs.lane & 3;
 
   for (int co0 = 0; co0 < C; co0 += CO) {
-    // stage weight unit u (tap u / n_ci, input channels (u % n_ci) * KC..)
-    auto issue = [&](int u, bf16* buf) {
-      const bf16* src = W + (size_t)(u / n_ci) * C * C +
-                        (size_t)((u % n_ci) * KC) * C + co0;
-      for (int i = threadIdx.x; i < KC * (CO / 8); i += NT) {
-        const int r = i / (CO / 8), c = (i % (CO / 8)) * 8;
-        cp_async16(buf + r * LDW + c, src + (size_t)r * C + c);
+    // this thread's bias pairs (columns co0 + 8 n + 2 t4), loaded before the
+    // products so that the epilogue does not wait for them
+    __nv_bfloat162 bias2[CO / 8];
+#pragma unroll
+    for (int n = 0; n < CO / 8; ++n)
+      bias2[n] = *reinterpret_cast<const __nv_bfloat162*>(bias + co0 + 8 * n + 2 * t4);
+    float acc[MT][NACC];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) acc[m][i] = 0.f;
+    uint32_t a[2][MT][4];
+    int prev = 0;
+    for (int u = 0; u < n_units; ++u) {
+      const int stage = cs.it % STAGES;
+      mbar_wait(&cs.ring->full[stage], (cs.it / STAGES) & 1);
+      const uint64_t bdesc = cs.desc0 + stage * (UNIT_BYTES >> 4);
+#pragma unroll
+      for (int s = 0; s < KU / 16; ++s) {
+        // reduction index: tap * C + input channel. Past the last tap (k * C
+        // is not a multiple of 64 at C = 32) the weights are zero; the A
+        // rows of the last tap, which hold finite values, stand in.
+        const int kk = u * KU + s * 16;
+        const int t = min(kk / C, k - 1), c0 = kk % C;
+        const int r0 = lo - p + t * d + 16 * cs.wq;
+        // every m-tile is computed, whether or not the range reaches it: a
+        // product under a branch would be serialised by ptxas. The rows past
+        // the range read clamped rows and are never stored.
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+          load_a<SMEM>(a[s & 1][m], cs.A, ld, r0 + 64 * (cs.wg + NCW * m), c0, cs.rows,
+                       cs.lane);
+        wgmma_fence();
+#pragma unroll
+        for (int m = 0; m < MT; ++m) wgmma_rs_k(acc[m], a[s & 1][m], bdesc + 2 * s);
+        wgmma_commit();
+        wgmma_wait<1>();             // the previous step's products are done ...
+        fence_regs(a[(s + 1) & 1]);  // ... and its A registers free
+        if (s == 0 && u > 0 && cs.lane == 0) mbar_arrive(&cs.ring->empty[prev]);
       }
-      cp_async_commit();
-    };
-    for (int rc0 = 0; rc0 < n_rc; rc0 += NWARPS * MR) {
-      float acc[MR][NF8][4];
+      prev = stage;
+      ++cs.it;
+    }
+    wgmma_wait<0>();
 #pragma unroll
-      for (int m = 0; m < MR; ++m)
-#pragma unroll
-        for (int n = 0; n < NF8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+    for (int m = 0; m < MT; ++m) fence_regs(acc[m]);
+    fence_regs(a[0]);
+    fence_regs(a[1]);
+    if (cs.lane == 0) mbar_arrive(&cs.ring->empty[prev]);
+    if (SMEM) named_bar_sync<NCW * 128>(1);  // both warpgroups are done reading A
 
-      issue(0, Ws);
-      for (int u = 0; u < n_units; ++u) {
-        if (u + 1 < n_units) {
-          issue(u + 1, Ws + ((u + 1) & 1) * unit);
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
+    // epilogue on the accumulator registers: register i of an m-tile holds
+    // row g + 8 * ((i >> 1) & 1) of the warp's 16, column 8 * (i >> 2) + 2 * t4 + (i & 1).
+    // A row's residual pairs are all loaded before any store.
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int mt = cs.wg + NCW * m;
+      if (mt >= n_mt) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = lo + 64 * mt + 16 * cs.wq + g + 8 * r;
+        if (j >= hi) continue;
+        const int gpos = cs.g0 + j;
+        const bool inside = gpos >= 0 && gpos < cs.L;
+        const size_t base = (size_t)j * ld + co0 + 2 * t4;
+        __nv_bfloat162* xrow = reinterpret_cast<__nv_bfloat162*>(cs.X + base);
+        __nv_bfloat162* orow = reinterpret_cast<__nv_bfloat162*>(cs.O + base);
+        __nv_bfloat162 xv[CO / 8];
+        if (!FIRST) {
+#pragma unroll
+          for (int n = 0; n < CO / 8; ++n) xv[n] = xrow[4 * n];
         }
-        __syncthreads();  // unit u is visible to every warp
-        const int t = u / n_ci, ci0 = (u % n_ci) * KC;
-        const bf16* wb = Ws + (u & 1) * unit;
-        for (int kk = 0; kk < KC; kk += 16) {
-          uint32_t bw[NF8][2];
 #pragma unroll
-          for (int np = 0; np < NF8 / 2; ++np) {
-            uint32_t r[4];
-            ldsm_x4_trans(r, wb + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LDW +
-                                 np * 16 + (lane >> 4) * 8);
-            bw[2 * np][0] = r[0];
-            bw[2 * np][1] = r[1];
-            bw[2 * np + 1][0] = r[2];
-            bw[2 * np + 1][1] = r[3];
-          }
-#pragma unroll
-          for (int m = 0; m < MR; ++m) {
-            const int rc = rc0 + m * NWARPS + warp;
-            if (rc < n_rc) {
-              const bf16* ar =
-                  in + (size_t)(lo + rc * 16 - p + t * d + g) * ld + ci0 + kk + 2 * t4;
-              uint32_t a[4];
-              a[0] = *reinterpret_cast<const uint32_t*>(ar);
-              a[1] = *reinterpret_cast<const uint32_t*>(ar + 8 * ld);
-              a[2] = *reinterpret_cast<const uint32_t*>(ar + 8);
-              a[3] = *reinterpret_cast<const uint32_t*>(ar + 8 * ld + 8);
-              if (FIRST) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) a[e] = lrelu2(a[e], slope);
-              }
-#pragma unroll
-              for (int n = 0; n < NF8; ++n) mma16816(acc[m][n], a, bw[n][0], bw[n][1]);
-            }
-          }
-        }
-        __syncthreads();  // every warp is done with this buffer before its refill
-      }
-
-      // epilogue on the accumulator registers
-#pragma unroll
-      for (int m = 0; m < MR; ++m) {
-        const int rc = rc0 + m * NWARPS + warp;
-        if (rc >= n_rc) continue;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int j = lo + rc * 16 + g + half * 8;
-          if (j >= hi) continue;
-          const int gpos = g0 + j;
-          const bool inside = gpos >= 0 && gpos < L;
-#pragma unroll
-          for (int n = 0; n < NF8; ++n) {
-            const int co = co0 + n * 8 + 2 * t4;
-            bf16 v0 = badd(__float2bfloat16(acc[m][n][2 * half]), bias[co]);
-            bf16 v1 = badd(__float2bfloat16(acc[m][n][2 * half + 1]), bias[co + 1]);
-            const size_t idx = (size_t)j * ld + co;
-            if (FIRST) {
-              __nv_bfloat162 out;
-              out.x = inside ? lrelu(v0, slope) : __float2bfloat16(0.f);
-              out.y = inside ? lrelu(v1, slope) : __float2bfloat16(0.f);
-              *reinterpret_cast<__nv_bfloat162*>(Bb + idx) = out;
-            } else {
-              if (!inside) v0 = v1 = __float2bfloat16(0.f);
-              __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(X + idx);
-              xv.x = badd(xv.x, v0);
-              xv.y = badd(xv.y, v1);
-              *reinterpret_cast<__nv_bfloat162*>(X + idx) = xv;
-            }
+        for (int n = 0; n < CO / 8; ++n) {
+          __nv_bfloat162 v = badd2(
+              __floats2bfloat162_rn(acc[m][4 * n + 2 * r], acc[m][4 * n + 2 * r + 1]), bias2[n]);
+          if (!inside) v = __floats2bfloat162_rn(0.f, 0.f);
+          if (FIRST) {
+            orow[4 * n] = lrelu2(v, cs.slope);
+          } else {
+            const __nv_bfloat162 sum = badd2(xv[n], v);
+            xrow[4 * n] = sum;
+            orow[4 * n] = lrelu2(sum, cs.slope);
           }
         }
       }
     }
   }
+  named_bar_sync<NCW * 128>(1);  // this conv's output is visible to both warpgroups
+  if (!SMEM) {
+    bf16* t = cs.A;
+    cs.A = cs.O;
+    cs.O = t;
+  }
 }
 
-__host__ __device__ constexpr size_t ws_bytes(int C) {
-  return (size_t)2 * ci_width(C) * (co_width(C) + 8) * 2;
+// plan.ks[rb] and plan.dil[rb][i] by constant indices: indexing the
+// parameter by a variable copies it to local memory, and ptxas then takes
+// every value derived from it (loop bounds around the wgmma) as divergent
+// and serialises the products
+__device__ __forceinline__ int kernel_size(const MrfPlan& plan, int rb) {
+  return rb == 0 ? plan.ks[0] : rb == 1 ? plan.ks[1] : plan.ks[2];
 }
 
-template <int NF8, int MR>
-__global__ void __launch_bounds__(NT)
-mrf_level_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
-                 const bf16* __restrict__ w, const bf16* __restrict__ bias,
-                 bf16* workspace, MrfPlan plan, int B, int C, int L, int T,
-                 int rows, float slope) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ws = reinterpret_cast<bf16*>(smem);
+__device__ __forceinline__ int dilation(const MrfPlan& plan, int rb, int i) {
+  const int d0 = rb == 0 ? plan.dil[0][0] : rb == 1 ? plan.dil[1][0] : plan.dil[2][0];
+  const int d1 = rb == 0 ? plan.dil[0][1] : rb == 1 ? plan.dil[1][1] : plan.dil[2][1];
+  const int d2 = rb == 0 ? plan.dil[0][2] : rb == 1 ? plan.dil[1][2] : plan.dil[2][2];
+  return i == 0 ? d0 : i == 1 ? d1 : d2;
+}
+
+struct __align__(16) Pack8 {
+  bf16 v[8];
+};
+
+template <int CO, int MT, bool SMEM>
+__global__ void __launch_bounds__(NT, 1)
+mrf_level_kernel(const __grid_constant__ CUtensorMap map_w, const bf16* __restrict__ x,
+                 bf16* __restrict__ y, const bf16* __restrict__ bias, bf16* workspace,
+                 MrfPlan plan, int B, int C_in, int L, int T, int rows, float slope) {
+  constexpr int UNIT_BYTES = CO * ROW_BYTES;
+  const int C = SMEM ? CO : C_in;  // one pass: a constant, which the index arithmetic uses
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  Ring* ring = reinterpret_cast<Ring*>(smem + STAGES * UNIT_BYTES);
   const int ld = C + 8;
   const size_t buf = (size_t)rows * ld;
-  bf16* base = workspace != nullptr
-                   ? workspace + (size_t)blockIdx.x * 2 * buf
-                   : reinterpret_cast<bf16*>(smem + ws_bytes(C));
-  bf16* X = base;
-  bf16* Bb = base + buf;
-  const bf16 zero = __float2bfloat16(0.f);
-
   const int n_tiles = (L + T - 1) / T;
-  for (int work = blockIdx.x; work < B * n_tiles; work += gridDim.x) {
+  const int n_work = B * n_tiles;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&ring->full[s], 1);
+      mbar_init(&ring->empty[s], NCW * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= NCW * 128) {
+    // producer: the weight units of every conv of every tile, in order
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == NCW * 128) {
+      uint32_t it = 0;
+      for (int work = blockIdx.x; work < n_work; work += gridDim.x)
+        for (int rb = 0; rb < 3; ++rb)
+          for (int i = 0; i < 6; ++i) {
+            const int conv = rb * 6 + i, units = (kernel_size(plan, rb) * C + KU - 1) / KU;
+            for (int co0 = 0; co0 < C; co0 += CO)
+              for (int u = 0; u < units; ++u, ++it) {
+                const int stage = it % STAGES;
+                mbar_wait(&ring->empty[stage], ((it / STAGES) & 1) ^ 1);
+                mbar_arrive_expect_tx(&ring->full[stage], UNIT_BYTES);
+                tma_load_2d(smem + stage * UNIT_BYTES, &map_w, &ring->full[stage], u * KU,
+                            conv * C + co0);
+              }
+          }
+    }
+    return;
+  }
+
+  reg_alloc<CONSUMER_REGS>();
+  Consumer cs;
+  bf16* base = SMEM ? reinterpret_cast<bf16*>(smem + STAGES * UNIT_BYTES + BAR_BYTES)
+                    : workspace + (size_t)blockIdx.x * 3 * buf;
+  cs.X = base;
+  cs.A = base + buf;
+  cs.O = SMEM ? cs.A : base + 2 * buf;
+  cs.ring = ring;
+  cs.desc0 = wgmma_desc(smem_u32(smem), 16, 1024);
+  cs.ld = ld;
+  cs.rows = rows;
+  cs.C = C;
+  cs.L = L;
+  cs.wg = threadIdx.x / 128;
+  cs.wq = (threadIdx.x / 32) % 4;
+  cs.lane = threadIdx.x % 32;
+  cs.slope = slope;
+  cs.it = 0;
+  const int tid = threadIdx.x;
+  constexpr int NC = NCW * 128;
+  const bf16 zero = __float2bfloat16(0.f);
+  const bool vec = L % 8 == 0;
+  constexpr int UNROLL = 4;  // 16-byte loads of x or y in flight a thread
+
+  for (int work = blockIdx.x; work < n_work; work += gridDim.x) {
     const int b = work / n_tiles;
     const int t0 = (work % n_tiles) * T;
     const bf16* xb = x + (size_t)b * C * L;
     bf16* yb = y + (size_t)b * C * L;
-    const bf16* wconv = w;
     const bf16* bconv = bias;
     for (int rb = 0; rb < 3; ++rb) {
-      const int k = plan.ks[rb];
+      const int k = kernel_size(plan, rb);
       int hk = 0;
-      for (int i = 0; i < 3; ++i) hk += (plan.dil[rb][i] + 1) * (k - 1) / 2;
+      for (int i = 0; i < 3; ++i) hk += (dilation(plan, rb, i) + 1) * (k - 1) / 2;
       const int E = T + 2 * hk;
       const int g0 = t0 - hk;
-      __syncthreads();  // previous tile / resblock is done with the buffers
-      for (int i = threadIdx.x; i < E * C; i += NT) {
-        const int c = i / E, j = i % E, g = g0 + j;
-        X[(size_t)j * ld + c] = (g >= 0 && g < L) ? xb[(size_t)c * L + g] : zero;
+      cs.g0 = g0;
+      // stage x[g0, g0 + E) transposed into X, and its leaky relu into A: a
+      // thread takes 8 positions of one channel (a 16-byte load where they
+      // lie inside an aligned x row), neighbouring threads neighbouring
+      // channels, UNROLL loads in flight
+      const int gs = g0 >= 0 ? g0 & ~7 : -((-g0 + 7) & ~7);
+      const int n_chunks = (g0 + E - gs + 7) / 8 * C;
+      for (int idx0 = tid; idx0 < n_chunks; idx0 += UNROLL * NC) {
+        Pack8 v[UNROLL];
+#pragma unroll
+        for (int q = 0; q < UNROLL; ++q) {
+          const int idx = idx0 + q * NC;
+          const int c = idx % C, g = gs + 8 * (idx / C);
+          const bf16* src = xb + (size_t)c * L;
+          if (idx >= n_chunks) {
+          } else if (vec && g >= 0 && g + 8 <= L) {
+            v[q] = *reinterpret_cast<const Pack8*>(src + g);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              v[q].v[e] = (g + e >= 0 && g + e < L) ? src[g + e] : zero;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < UNROLL; ++q) {
+          const int idx = idx0 + q * NC;
+          if (idx >= n_chunks) break;
+          const int c = idx % C, g = gs + 8 * (idx / C);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const int j = g + e - g0;
+            if (j >= 0 && j < E) {
+              cs.X[(size_t)j * ld + c] = v[q].v[e];
+              cs.A[(size_t)j * ld + c] = lrelu(v[q].v[e], slope);
+            }
+          }
+        }
       }
+      named_bar_sync<NC>(1);
       int lo = 0, hi = E;
       for (int i = 0; i < 3; ++i) {
-        const int d = plan.dil[rb][i];
+        const int d = dilation(plan, rb, i);
         const int p1 = d * (k - 1) / 2, p2 = (k - 1) / 2;
-        // each conv_stage opens with a barrier before reading its input
-        conv_stage<NF8, MR, true>(X, Bb, Ws, ld, lo + p1, hi - p1, k, d,
-                                  wconv, bconv, C, g0, L, slope);
-        wconv += (size_t)k * C * C;
-        bconv += C;
         lo += p1;
         hi -= p1;
-        conv_stage<NF8, MR, false>(X, Bb, Ws, ld, lo + p2, hi - p2, k, 1,
-                                   wconv, bconv, C, g0, L, slope);
-        wconv += (size_t)k * C * C;
+        conv_stage<CO, MT, true, SMEM>(cs, lo, hi, k, d, bconv);
         bconv += C;
         lo += p2;
         hi -= p2;
+        conv_stage<CO, MT, false, SMEM>(cs, lo, hi, k, 1, bconv);
+        bconv += C;
       }
-      __syncthreads();  // the last conv's writes to X are visible
-      // rows [hk, hk + T) now hold this resblock's output for the tile
-      for (int i = threadIdx.x; i < T * C; i += NT) {
-        const int c = i / T, j = i % T, g = t0 + j;
-        if (g >= L) continue;
-        const bf16 v = X[(size_t)(hk + j) * ld + c];
-        bf16* out = yb + (size_t)c * L + g;
-        if (rb == 0) {
-          *out = v;
-        } else {
-          bf16 s = badd(*out, v);
-          if (rb == 2) s = __float2bfloat16(__bfloat162float(s) / 3.f);
-          *out = s;
+      // rows [hk, hk + T) hold this ResBlock's output: add it into y, 8
+      // positions of one channel a thread (T is a multiple of 8), the y
+      // loads of UNROLL chunks in flight before any store
+      const int n_out = (T / 8) * C;
+      for (int idx0 = tid; idx0 < n_out; idx0 += UNROLL * NC) {
+        Pack8 out[UNROLL];
+        if (rb > 0) {
+#pragma unroll
+          for (int q = 0; q < UNROLL; ++q) {
+            const int idx = idx0 + q * NC;
+            const int c = idx % C, g = t0 + 8 * (idx / C);
+            const bf16* dst = yb + (size_t)c * L + g;
+            if (idx >= n_out || g >= L) {
+            } else if (vec && g + 8 <= L) {
+              out[q] = *reinterpret_cast<const Pack8*>(dst);
+            } else {
+#pragma unroll
+              for (int e = 0; e < 8; ++e) out[q].v[e] = g + e < L ? dst[e] : zero;
+            }
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < UNROLL; ++q) {
+          const int idx = idx0 + q * NC;
+          const int c = idx % C, j0 = 8 * (idx / C), g = t0 + j0;
+          if (idx >= n_out) break;
+          if (g >= L) continue;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const bf16 v = cs.X[(size_t)(hk + j0 + e) * ld + c];
+            if (rb == 0) {
+              out[q].v[e] = v;
+            } else {
+              bf16 sum = badd(out[q].v[e], v);
+              if (rb == 2) sum = __float2bfloat16(__bfloat162float(sum) / 3.f);
+              out[q].v[e] = sum;
+            }
+          }
+          bf16* dst = yb + (size_t)c * L + g;
+          if (vec && g + 8 <= L) {
+            *reinterpret_cast<Pack8*>(dst) = out[q];
+          } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              if (g + e < L) dst[e] = out[q].v[e];
+          }
         }
       }
+      named_bar_sync<NC>(1);  // X is free for the next ResBlock's staging
     }
   }
 }
 
-template <int NF8, int MR>
-cudaError_t launch(const void* x, void* y, const void* w, const void* bias,
-                   void* workspace, MrfPlan plan, int B, int C, int L, int T,
-                   int rows, int grid, int smem, float slope,
-                   cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      mrf_level_kernel<NF8, MR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  mrf_level_kernel<NF8, MR><<<grid, NT, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<bf16*>(y),
-      static_cast<const bf16*>(w), static_cast<const bf16*>(bias),
-      static_cast<bf16*>(workspace), plan, B, C, L, T, rows, slope);
-  return cudaGetLastError();
-}
+constexpr int SMEM_MAX = 232448;      // bytes of shared memory a block may use on Hopper
+constexpr int ERR_NO_ENCODER = 2000;  // libcuda has no cuTensorMapEncodeTiled
+constexpr int ERR_ENCODE = 3000;      // + the CUresult of a refused tensor map
+constexpr int ERR_PLAN = 4000;        // a tile plan the kernel cannot run
 
-// Bytes of dynamic shared memory: two weight units, and the two buffers
-// when they live in shared memory.
+// Output channels a pass and m-tiles a consumer warpgroup, by C.
+__host__ __device__ constexpr int co_width(int C) { return C < 128 ? C : 128; }
+__host__ __device__ constexpr int m_tiles(int C) { return C == 32 ? 6 : C == 64 ? 4 : 2; }
+
+// Bytes of dynamic shared memory: the ring, its barriers, the two buffers
+// when they live in shared memory, and the slack of the 1024-byte alignment.
 int smem_bytes(int C, int rows, bool buffers_in_smem) {
-  size_t bytes = ws_bytes(C);
+  size_t bytes = (size_t)STAGES * co_width(C) * ROW_BYTES + BAR_BYTES + 1024;
   if (buffers_in_smem) bytes += (size_t)2 * rows * (C + 8) * 2;
   return (int)bytes;
 }
 
+template <int CO, int MT, bool SMEM>
+int launch(const CUtensorMap& map, const void* x, void* y, const void* bias, void* workspace,
+           MrfPlan plan, int B, int C, int L, int T, int rows, int grid, int smem, float slope,
+           cudaStream_t stream) {
+  auto kernel = mrf_level_kernel<CO, MT, SMEM>;
+  // the largest block the card allows, set once per device and instantiation
+  static bool allowed[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device >= 64 || !allowed[device]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+    if (device < 64) allowed[device] = true;
+  }
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, NT, smem, stream>>>(map, static_cast<const bf16*>(x), static_cast<bf16*>(y),
+                                     static_cast<const bf16*>(bias),
+                                     static_cast<bf16*>(workspace), plan, B, C, L, T, rows,
+                                     slope);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// x, y: [B, C, L] bf16, contiguous. w: the 18 convs in chain order, each
-// [k][C_in][C_out] bf16, back to back. bias: [18][C] bf16. workspace: null
-// (buffers in shared memory) or grid * 2 * rows * (C + 8) bf16.
-// C is 32, 64 or a multiple of 128.
-extern "C" int mrf_level_fwd(const void* x, void* y, const void* w,
-                             const void* bias, void* workspace, MrfPlan plan,
-                             int B, int C, int L, int T, int rows, int grid,
-                             float slope, void* stream) {
-  const int smem = smem_bytes(C, rows, workspace == nullptr);
+// x, y: [B, C, L] bf16, contiguous, 16-byte aligned. w: the 18 convs in
+// chain order as [18 * C_out][kpad] bf16, row conv * C + c_out holding tap t,
+// input channel c_in at column t * C + c_in and zeros after the last tap
+// (ops/mrf.py:pack_weights; kpad a multiple of 64). bias: [18][C] bf16.
+// workspace: null (buffers in shared memory, one block a tile) or grid * 2 *
+// rows * (C + 8) bf16 (C >= 128 only). C is 32, 64 or a multiple of 64 from
+// 128; T a multiple of 8 whose widest conv range fits the block's m-tiles.
+extern "C" int mrf_level_fwd(const void* x, void* y, const void* w, const void* bias,
+                             void* workspace, MrfPlan plan, int B, int C, int L, int T,
+                             int rows, int grid, int kpad, float slope, void* stream) {
+  if (!(C == 32 || C == 64 || (C >= 128 && C % 128 == 0)) || T % 8 || T < 8 || B < 1 ||
+      L < 1 || grid < 1 || kpad % KU || (C <= 128) != (workspace == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int cover = NCW * m_tiles(C) * 64;
+  for (int rb = 0; rb < 3; ++rb) {
+    const int k = plan.ks[rb];
+    int hk = 0;
+    for (int i = 0; i < 3; ++i) hk += (plan.dil[rb][i] + 1) * (k - 1) / 2;
+    const int first = plan.dil[rb][0] * (k - 1) / 2;
+    if (k * C > kpad || k % 2 == 0 || T + 2 * hk > rows || T + 2 * hk - 2 * first > cover)
+      return ERR_PLAN;
+  }
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return ERR_NO_ENCODER;
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {(cuuint64_t)kpad, (cuuint64_t)18 * C};
+  const cuuint64_t strides[1] = {(cuuint64_t)kpad * 2};
+  const cuuint32_t box[2] = {KU, (cuuint32_t)co_width(C)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return ERR_ENCODE + (int)r;
+  const bool in_smem = workspace == nullptr;
+  const int smem = smem_bytes(C, rows, in_smem);
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
   if (C == 32)
-    err = launch<4, 4>(x, y, w, bias, workspace, plan, B, C, L, T, rows, grid,
-                       smem, slope, s);
-  else if (C == 64)
-    err = launch<8, 2>(x, y, w, bias, workspace, plan, B, C, L, T, rows, grid,
-                       smem, slope, s);
-  else if (C % 128 == 0)
-    err = launch<16, 1>(x, y, w, bias, workspace, plan, B, C, L, T, rows, grid,
-                        smem, slope, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+    return launch<32, 6, true>(map, x, y, bias, workspace, plan, B, C, L, T, rows, grid, smem,
+                               slope, s);
+  if (C == 64)
+    return launch<64, 4, true>(map, x, y, bias, workspace, plan, B, C, L, T, rows, grid, smem,
+                               slope, s);
+  if (in_smem)
+    return launch<128, 2, true>(map, x, y, bias, workspace, plan, B, C, L, T, rows, grid, smem,
+                                slope, s);
+  return launch<128, 2, false>(map, x, y, bias, workspace, plan, B, C, L, T, rows, grid, smem,
+                               slope, s);
 }

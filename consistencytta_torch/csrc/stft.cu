@@ -4,103 +4,111 @@
 //   consistencytta_tpu/ops/pallas_stft.py:stft_magnitude_pallas (_stft_kernel),
 // which computes, for a [B, T] float32 waveform, the reflect-padded framed
 // real DFT against a windowed basis and its magnitude,
-//   out[b, f, n] = | sum_k wavpad[b, f*hop + k] * (cos[k, n] + i sin[k, n]) |,
-// without ever writing the overlapping frames to device memory.
+//   out[b, f, k] = | sum_n wavpad[b, f*hop + n] * w[n] * e^{-2 pi i k n / N} |,
+// for N = 1024 and bins k = 0..N/2, without ever writing the overlapping
+// frames to device memory. The windowed basis of the frontend is exactly the
+// window times the DFT (ops/mel.py:real_dft_basis), so the kernel takes the
+// window and computes the DFT as an FFT.
 //
-// What bounds it on the H100: at window 1024, hop 160 and 513 bins the
-// function does 2 * 1024 * 1026 operations per output frame against 640
-// bytes of waveform read and 2052 bytes written, some 780 operations per
-// byte: it is bound by operations. The accuracy the frontend needs is that
-// of float32 (a single bf16 or TF32 pass loses three digits on the 1024-term
-// sums). The fastest arithmetic of that accuracy is three TF32 passes on the
-// tensor cores: each operand is split into hi (its top 10 mantissa bits,
-// rounded to nearest) and lo = x - hi (exact), and a*b is taken as
-// a_lo*b_hi + a_hi*b_lo + a_hi*b_hi; the dropped a_lo*b_lo is 2^-22 of the
-// product. The tensor cores add into their float32 accumulators with
-// truncation, which over 1024 terms would cost a digit, so the products of
-// only KC = 32 window samples are summed there and each such partial sum is
-// added to the running total by an ordinary (round-to-nearest) float add.
+// What bounds it on the H100: a complex FFT of two frames does about
+// 5 N log2 N = 51,200 operations, ~25,600 a frame, against 640 bytes of new
+// waveform read and 2052 bytes of magnitudes written a frame: ~10 operations
+// a byte, below the ~20 a byte at which the FP32 rate (67 TFLOP/s) and the
+// memory (3.35 TB/s) balance. At batch 8 that is ~3 us of arithmetic against
+// ~6.4 us of bytes: it is bound by the bytes it must move (read the waveform
+// once, write the magnitudes once).
 //
-// Design. One block of 8 warps computes a tile of TF = 64 frames x TB = 64
-// bins (128 basis columns: 64 cos, then the 64 sin of the same bins) of one
-// batch row with mma.sync m16n8k8 (TF32 in, float32 out); a warp owns 32
-// frames x 16 bins, so re and im of a bin land in the same thread and the
-// magnitude needs no exchange. The block stages the span of the padded
-// waveform that its frames cover, (TF - 1) * hop + L samples (44 KB at hop
-// 160, L 1024), in shared memory once, doing the reflect padding by index
-// arithmetic while it loads; frame f of the tile is the window at f*hop, so
-// the frames are never materialised. Two things make the fragment loads
-// cheap. Within every aligned group of 8 samples the order is permuted to
-// k0 k4 k1 k5 k2 k6 k3 k7, so the two A values a thread needs of a row
-// (columns t and t + 4) are one 8-byte load; and every hop samples the span
-// skips 8 words, because with hop = 160 = 0 mod 32 the 8 frames of a
-// fragment would otherwise sit in one bank. The basis (1024 x 1026 float32,
-// 4.2 MB, resident in L2) is packed once on the host side into the exact
-// image of the shared-memory tiles ([bin tile][k / 8][128 columns][8 samples
-// in the same permuted order], zero columns past n_bins: see
-// ops/stft.py:pack_basis), so a tile of KC samples is a contiguous 16 KB that
-// streams in with 16-byte cp.async, double-buffered, and a thread's two B
-// values are again one conflict-free 8-byte load. hi and lo are split in
-// registers after the loads (two integer operations and a subtraction).
-// Both edges are ragged (1001 frames, 513 bins): samples past the padded
-// signal are zero, and the stores are masked.
-// Known gaps: 9 bin tiles cover 576 columns for 513 bins (12% idle work),
-// the split is redone by every warp that loads a value, and mma.sync
-// reaches a fraction of the wgmma rate.
+// Design. One block of 8 warps takes FPB = 32 consecutive frames of one batch
+// row. It stages the span of the padded waveform those frames cover,
+// (FPB - 1) * hop + N samples, in shared memory once, doing the reflect
+// padding by index arithmetic while it loads. Each warp then takes two frames
+// at a time as one complex sequence (frame f the real part, frame f + 1 the
+// imaginary part) and runs a 1024-point complex FFT on it as 32 x 32 (the
+// four-step FFT): lane n1 takes the 32 samples n1 + 32 n2 (times the window,
+// staged in shared memory beside the span), runs a radix-2 32-point FFT on them in
+// registers, multiplies by the twiddles W_1024^(n1 k2) and writes the result
+// transposed to a per-warp exchange buffer (rows of 33 to keep the banks
+// apart); lane k2 then reads row k2 and runs the second 32-point FFT, which
+// leaves bins k2 + 32 k1 in its registers. The two real spectra are separated
+// with the conjugate-symmetry identity: bin N - k of the same pair lives in
+// lane (32 - k2) mod 32, one shuffle away. Each lane takes the magnitude in
+// fp32 and stores it, 32 consecutive bins a warp store.
+//
+// Precision: all arithmetic is fp32 (no fast-math, no __sinf); the twiddles
+// come from a table the host builds once in float64 and rounds to float32
+// (ops/stft.py:fft_twiddles). An fp32 FFT is accurate to about eps * log2 N
+// of the spectrum's RMS.
 
-#include "mma_common.cuh"  // smem_u32, cp_async16, cp_async_commit, cp_async_wait
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int TF = 64;            // frames per block
-constexpr int TB = 64;            // bins per block
-constexpr int NC = 2 * TB;        // basis columns per block: cos then sin
-constexpr int KC = 32;            // window samples per staged basis tile
-constexpr int NT = 256;           // 8 warps: 2 (frames) x 4 (bins)
-constexpr int TILE = KC * NC;     // floats of one staged basis tile
-constexpr int SKEW = 8;           // words skipped in the span every hop samples
+constexpr int N = 1024;       // filter length: 32 x 32
+constexpr int R = 32;         // radix of the two passes
+constexpr int FPB = 32;       // frames a block
+constexpr int NWARPS = 8;
+constexpr int NT = NWARPS * 32;
+constexpr int XROW = R + 1;   // float2 a row of the exchange buffer
 
-// x = hi + lo with hi on 10 mantissa bits (round to nearest) and lo exact
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
+__host__ __device__ constexpr int bitrev5(int x) {
+  return ((x & 1) << 4) | ((x & 2) << 2) | (x & 4) | ((x & 8) >> 2) | ((x & 16) >> 4);
 }
 
-// d += a (16x8, row) * b (8x8, col), TF32 operands, float32 accumulate
-__device__ __forceinline__ void mma1688(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// One radix-2 decimation-in-frequency stage over butterflies HALF apart
+// (every index a constant, so the arrays stay in registers). tw32[e] is
+// W_32^e for e < 16; the multiplications by 1 and -i are done exactly.
+template <int HALF>
+__device__ __forceinline__ void fft_stage(float (&re)[R], float (&im)[R], const float2* tw32) {
+  constexpr int STRIDE = (R / 2) / HALF;
+#pragma unroll
+  for (int base = 0; base < R; base += 2 * HALF) {
+#pragma unroll
+    for (int j = 0; j < HALF; ++j) {
+      const int a = base + j, b = a + HALF, e = j * STRIDE;
+      const float ur = re[a] + re[b], ui = im[a] + im[b];
+      const float vr = re[a] - re[b], vi = im[a] - im[b];
+      re[a] = ur;
+      im[a] = ui;
+      if (e == 0) {
+        re[b] = vr;
+        im[b] = vi;
+      } else if (e == R / 4) {  // W_32^8 = -i
+        re[b] = vi;
+        im[b] = -vr;
+      } else {
+        const float2 w = tw32[e];
+        re[b] = vr * w.x - vi * w.y;
+        im[b] = vr * w.y + vi * w.x;
+      }
+    }
+  }
 }
 
-// position of sample j (0..7) of an aligned group of 8: k0 k4 k1 k5 k2 k6 k3 k7
-__device__ __forceinline__ int slot(int j) { return j < 4 ? 2 * j : 2 * (j - 4) + 1; }
+// In-place radix-2 FFT of 32 complex values in registers: natural order in,
+// bin k out in register bitrev5(k).
+__device__ __forceinline__ void fft32(float (&re)[R], float (&im)[R], const float2* tw32) {
+  fft_stage<16>(re, im, tw32);
+  fft_stage<8>(re, im, tw32);
+  fft_stage<4>(re, im, tw32);
+  fft_stage<2>(re, im, tw32);
+  fft_stage<1>(re, im, tw32);
+}
 
 __global__ void __launch_bounds__(NT, 2)
-stft_magnitude_kernel(const float* __restrict__ wav, const float* __restrict__ packed,
-                      float* __restrict__ out, int T, int L, int hop, int pad,
-                      int n_frames, int n_bins) {
-  extern __shared__ __align__(16) float smem[];
-  const int span = (TF - 1) * hop + L;
-  const int row = hop + SKEW;  // words between the starts of two frames
-  float* Bs = smem;            // [2][KC / 8][NC][8]
-  float* S = smem + 2 * TILE;  // the tile's span of the padded waveform
+stft_fft_kernel(const float* __restrict__ wav, const float* __restrict__ window,
+                const float2* __restrict__ twiddles, float* __restrict__ out, int T,
+                int hop, int pad, int n_frames) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* xbuf = reinterpret_cast<float2*>(smem);  // [NWARPS][R][XROW]
+  float2* tw32 = xbuf + NWARPS * R * XROW;         // [R / 2]
+  float* win = reinterpret_cast<float*>(tw32 + R / 2);  // [N]
+  float* S = win + N;
+  constexpr int n_bins = N / 2 + 1;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int f0 = blockIdx.y * TF;
-  const float* w = wav + (size_t)blockIdx.z * T;
-  const float* tiles = packed + (size_t)blockIdx.x * L * NC;
-  const int n_kc = L / KC;
-
-  auto issue = [&](int kc, float* buf) {
-    const float* src = tiles + (size_t)kc * TILE;
-    for (int i = tid * 4; i < TILE; i += NT * 4) cp_async16(buf + i, src + i);
-    cp_async_commit();
-  };
-  issue(0, Bs);
+  const int f0 = blockIdx.x * FPB, b = blockIdx.y;
+  const int span = (FPB - 1) * hop + N;
+  const float* w = wav + (size_t)b * T;
 
   // the span, reflect-padded by index: padded position p is sample p - pad,
   // mirrored about 0 and about T - 1; past the padded signal it is zero
@@ -114,107 +122,103 @@ stft_magnitude_kernel(const float* __restrict__ wav, const float* __restrict__ p
       else if (n >= T) n = 2 * (T - 1) - n;
       v = w[n];
     }
-    S[(i & ~7) + slot(i & 7) + SKEW * (i / hop)] = v;
+    S[i] = v;
   }
+  if (tid < R / 2) tw32[tid] = twiddles[R * R + tid];
+  for (int i = tid; i < N; i += NT) win[i] = window[i];
+  __syncthreads();
 
-  // [frame half of 16][n8 tile: 0, 1 cos and 2, 3 sin of the warp's 16 bins][4]
-  float acc[2][4][4];
+  float2* x = xbuf + warp * R * XROW;
+  for (int pair = warp; 2 * pair < FPB; pair += NWARPS) {
+    const int fa = f0 + 2 * pair;
+    if (fa >= n_frames) break;
+    const bool has_b = fa + 1 < n_frames;
+    const float* sa = S + 2 * pair * hop + lane;
+    float re[R], im[R];
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+    for (int n2 = 0; n2 < R; ++n2) {
+      const float wn = win[lane + R * n2];
+      re[n2] = sa[R * n2] * wn;
+      im[n2] = has_b ? sa[hop + R * n2] * wn : 0.f;
+    }
+    // first pass over n2, then the twiddles W_1024^(n1 k2), written transposed
+    fft32(re, im, tw32);
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int k2 = 0; k2 < R; ++k2) {
+      const float2 t = __ldg(twiddles + k2 * R + lane);
+      const float yr = re[bitrev5(k2)], yi = im[bitrev5(k2)];
+      x[k2 * XROW + lane] = make_float2(yr * t.x - yi * t.y, yr * t.y + yi * t.x);
+    }
+    __syncwarp();
+    // second pass over n1: lane k2 ends with bins k2 + 32 k1 in register bitrev5(k1)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+    for (int n1 = 0; n1 < R; ++n1) {
+      const float2 v = x[lane * XROW + n1];
+      re[n1] = v.x;
+      im[n1] = v.y;
+    }
+    __syncwarp();  // the buffer is free for the next pair
+    fft32(re, im, tw32);
 
-  for (int kc = 0; kc < n_kc; ++kc) {
-    if (kc + 1 < n_kc) {
-      issue(kc + 1, Bs + ((kc + 1) & 1) * TILE);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile kc (and, first time round, the span) is visible
-    const float* bt = Bs + (kc & 1) * TILE;
-    float part[2][4][4];
+    // Z = A + iB with A, B the spectra of frames fa and fa + 1:
+    //   A_k = (Z_k + conj Z_{N-k}) / 2,  B_k = (Z_k - conj Z_{N-k}) / 2i.
+    // Bin N - k of bin k = k2 + 32 k1 is in lane (32 - k2) % 32, at k1' =
+    // 31 - k1 (k2 > 0) or (32 - k1) % 32 (k2 = 0); each lane sends what its
+    // partner needs.
+    float* oa = out + ((size_t)b * n_frames + fa) * n_bins;
+    float* ob = oa + n_bins;
+    const int partner = (R - lane) & (R - 1);
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[m][n][e] = 0.f;
-#pragma unroll
-    for (int k8 = 0; k8 < KC / 8; ++k8) {
-      const int kk = kc * KC + k8 * 8;
-      uint32_t bh[4][2], bl[4][2];
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        const int col = (n >> 1) * TB + wn * 16 + (n & 1) * 8 + g;
-        const float2 v = *reinterpret_cast<const float2*>(bt + (k8 * NC + col) * 8 + 2 * t4);
-        split(v.x, bh[n][0], bl[n][0]);
-        split(v.y, bh[n][1], bl[n][1]);
-      }
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        const float* ar = S + (wm * 32 + m * 16 + g) * row + kk + SKEW * (kk / hop) + 2 * t4;
-        const float2 top = *reinterpret_cast<const float2*>(ar);            // row g
-        const float2 bot = *reinterpret_cast<const float2*>(ar + 8 * row);  // row g + 8
-        uint32_t ah[4], al[4];
-        split(top.x, ah[0], al[0]);
-        split(bot.x, ah[1], al[1]);
-        split(top.y, ah[2], al[2]);
-        split(bot.y, ah[3], al[3]);
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          mma1688(part[m][n], al, bh[n]);
-          mma1688(part[m][n], ah, bl[n]);
-          mma1688(part[m][n], ah, bh[n]);
-        }
+    for (int k1 = 0; k1 <= N / 2 / R; ++k1) {
+      const int mine = bitrev5(k1);
+      const int give_0 = bitrev5((R - k1) & (R - 1)), give = bitrev5((R - 1 - k1) & (R - 1));
+      const float sr = lane == 0 ? re[give_0] : re[give];
+      const float si = lane == 0 ? im[give_0] : im[give];
+      const float pr = __shfl_sync(0xffffffffu, sr, partner);
+      const float pi = __shfl_sync(0xffffffffu, si, partner);
+      const int k = lane + R * k1;
+      if (k < n_bins) {
+        const float zr = re[mine], zi = im[mine];
+        const float ar = zr + pr, ai = zi - pi, br = zi + pi, bi = zr - pr;
+        oa[k] = 0.5f * sqrtf(ar * ar + ai * ai);
+        if (has_b) ob[k] = 0.5f * sqrtf(br * br + bi * bi);
       }
     }
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[m][n][e] += part[m][n][e];
-    __syncthreads();  // every warp is done with this buffer before its refill
   }
+}
 
-  float* o = out + (size_t)blockIdx.z * n_frames * n_bins;
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int f = f0 + wm * 32 + m * 16 + g + 8 * half;
-      if (f >= n_frames) continue;
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int bin = blockIdx.x * TB + wn * 16 + n * 8 + 2 * t4 + e;
-          const float re = acc[m][n][2 * half + e], im = acc[m][n + 2][2 * half + e];
-          if (bin < n_bins) o[(size_t)f * n_bins + bin] = sqrtf(re * re + im * im);
-        }
-    }
+constexpr int SMEM_MAX = 232448;  // bytes of shared memory a block may use on Hopper
+
+int smem_bytes(int hop) {
+  return (NWARPS * R * XROW + R / 2) * (int)sizeof(float2) + (N + (FPB - 1) * hop + N) * 4;
 }
 
 }  // namespace
 
-// wav: [B, T] float32. packed: [ceil(n_bins / 64)][L / 8][128][8] float32, the
-// basis as ops/stft.py:pack_basis lays it out. out: [B, n_frames, n_bins]
-// float32. hop % 8 == 0 and L % 32 == 0; pad < T.
-extern "C" int stft_magnitude_fwd(const void* wav, const void* packed, void* out, int B,
-                                  int T, int L, int hop, int pad, int n_frames,
-                                  int n_bins, void* stream) {
-  if (hop % 8 || L % KC || pad >= T) return (int)cudaErrorInvalidValue;
-  const int span = (TF - 1) * hop + L;
-  const int smem = (2 * TILE + span + SKEW * (span / hop + 1)) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      stft_magnitude_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// wav: [B, T] float32. window: [L] float32 (L == 1024). twiddles: [N_TW]
+// float2, W_1024^(n1 k2) at [k2 * 32 + n1], then W_32^e for e < 16. out:
+// [B, n_frames, L / 2 + 1] float32. 0 < pad < T.
+extern "C" int stft_magnitude_fwd(const void* wav, const void* window, const void* twiddles,
+                                  void* out, int B, int T, int L, int hop, int pad,
+                                  int n_frames, void* stream) {
+  if (L != N || hop < 1 || pad >= T || B < 1 || n_frames < 1) return (int)cudaErrorInvalidValue;
+  // the largest block the card allows, set once per device: the attribute
+  // is a ceiling, and setting it costs host time at every launch
+  static bool allowed[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_bins + TB - 1) / TB, (n_frames + TF - 1) / TF, B);
-  stft_magnitude_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(wav), static_cast<const float*>(packed),
-      static_cast<float*>(out), T, L, hop, pad, n_frames, n_bins);
+  if (device >= 64 || !allowed[device]) {
+    err = cudaFuncSetAttribute(stft_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+    if (device < 64) allowed[device] = true;
+  }
+  const int smem = smem_bytes(hop);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n_frames + FPB - 1) / FPB, B);
+  stft_fft_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+      static_cast<const float*>(wav), static_cast<const float*>(window),
+      static_cast<const float2*>(twiddles), static_cast<float*>(out), T, hop, pad, n_frames);
   return (int)cudaGetLastError();
 }

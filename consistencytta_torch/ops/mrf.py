@@ -5,15 +5,21 @@ multi-dilation ResBlocks and averages them. `fused_mrf_level` takes the 18
 conv weights in chain order (resblock-major; per dilation, the dilated conv
 then the d=1 conv) in torch Conv1d layout [C_out, C_in, k], and their
 biases. On a CUDA tensor it launches `csrc/mrf.cu` (bf16; C 32, 64 or a
-multiple of 128; three ResBlocks of three dilations) and raises on anything
-else; on a CPU tensor it runs `mrf_level_plain`. The backward differentiates the plain
-chain, as the JAX package's custom VJP does.
+multiple of 128; three ResBlocks of three dilations) and raises on
+anything else; on a CPU tensor it runs `mrf_level_plain`. The backward
+differentiates the plain chain, as the JAX package's custom VJP does.
+
+The kernel takes the weights packed K-major (`pack_weights`); the pack is
+made once per weight version and kept (`packed_weights`), keyed on the
+tensors' storage and in-place version counters.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+import weakref
+from collections import OrderedDict
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,9 +27,11 @@ import torch.nn.functional as F
 from consistencytta_torch.ops import _build
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
-WORKSPACE_GRID = 264  # blocks when the intermediates live in a workspace
-MAX_TILE = 512  # positions per block
-WORKSPACE_TILE = 64
+STAGES = 4  # weight units in the kernel's ring
+UNIT_K = 64  # reduction values (tap x input channel) of a weight unit
+BAR_BYTES = 128  # the ring's mbarriers
+CONSUMER_GROUPS = 2  # consumer warpgroups a block
+PACK_CACHE_SIZE = 8  # weight packs kept (one per vocoder level, and some)
 
 
 def _lrelu(x, slope):
@@ -82,28 +90,89 @@ def halo(kernel_sizes, dilations) -> int:
                for k, ds in zip(kernel_sizes, dilations))
 
 
+def co_width(c: int) -> int:
+    """Output channels of one pass of the kernel (CO in csrc/mrf.cu)."""
+    return min(c, 128)
+
+
+def m_tiles(c: int) -> int:
+    """64-row m-tiles of accumulators a consumer warpgroup holds (MT)."""
+    return {32: 6, 64: 4}.get(c, 2)
+
+
 def smem_bytes(c: int, rows: int, buffers_in_smem: bool) -> int:
-    """Shared memory of one block (mirrors smem_bytes in csrc/mrf.cu):
-    two weight units of min(C, 64) input x min(C, 128) output channels, and
-    the two [rows, C + 8] bf16 buffers when they live there."""
-    nbytes = 2 * min(c, 64) * (min(c, 128) + 8) * 2
+    """Shared memory of one block (mirrors smem_bytes in csrc/mrf.cu): the
+    ring of weight units, its barriers, the 1024-byte alignment slack, and the
+    two [rows, C + 8] bf16 buffers when they live there."""
+    nbytes = STAGES * co_width(c) * 128 + BAR_BYTES + 1024
     return nbytes + (2 * rows * (c + 8) * 2 if buffers_in_smem else 0)
 
 
-def tile_plan(c: int, length: int, hmax: int):
-    """(T, rows, buffers in shared memory?) for a level of width c. T is the
-    largest multiple of 32 (at most 512, and no more than the signal needs)
-    whose buffers of T + 2*hmax + 16 rows fit in shared memory; when not even
-    T = 64 fits, the buffers go to a device workspace with T = 64."""
-    free = SMEM_LIMIT - smem_bytes(c, 0, False)
-    t = min(MAX_TILE, free // (2 * (c + 8) * 2) - 2 * hmax - 16)
-    t = min(t, max(64, -(-length // 32) * 32)) // 32 * 32
-    if t >= 64:
-        return t, t + 2 * hmax + 16, True
-    return WORKSPACE_TILE, WORKSPACE_TILE + 2 * hmax + 16, False
+def tile_plan(c: int, length: int, kernel_sizes, dilations) -> Tuple[int, int, bool]:
+    """(T, rows, buffers in shared memory?) for a level of width c. T, a
+    multiple of 8 and no more than the signal needs, is bounded by the
+    m-tiles of a block (the widest conv range, T + 2 H_k minus the first
+    conv's padding, must fit 2 * MT * 64 rows) and, with the buffers in shared
+    memory, by their T + 2 * halo rows. Widths of one output pass (C <= 128)
+    keep their two buffers in shared memory; the wider ones take three in a
+    device workspace."""
+    hmax = halo(kernel_sizes, dilations)
+    widest = max(2 * sum((d + 1) * (k - 1) // 2 for d in ds) - 2 * ds[0] * (k - 1) // 2
+                 for k, ds in zip(kernel_sizes, dilations))
+    need = -(-length // 8) * 8
+    cover = CONSUMER_GROUPS * m_tiles(c) * 64 - widest
+    per_row = 2 * (c + 8) * 2
+    fit = (SMEM_LIMIT - smem_bytes(c, 0, False)) // per_row - 2 * hmax
+    if c <= 128:
+        t = min(cover, fit, need) // 8 * 8
+        return t, t + 2 * hmax, True
+    t = min(cover, need) // 8 * 8
+    return t, t + 2 * hmax, False
 
 
-def _mrf_cuda(x, weights, biases, kernel_sizes, dilations, slope):
+def pack_weights(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
+                 kernel_sizes) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 18 convs as the kernel reads them: [18 * C_out, kpad] bf16, row
+    conv * C + c_out holding tap t, input channel c_in at column t * C + c_in,
+    zeros after the conv's last tap up to kpad (the widest conv's k * C,
+    rounded up to a multiple of 64); and the biases [18, C] bf16."""
+    c = weights[0].shape[0]
+    kpad = -(-max(kernel_sizes) * c // UNIT_K) * UNIT_K
+    rows = [F.pad(w.detach().to(torch.bfloat16).permute(0, 2, 1).reshape(c, -1),
+                  (0, kpad - w.shape[-1] * c)) for w in weights]
+    return (torch.cat(rows).contiguous(),
+            torch.stack([b.detach().to(torch.bfloat16) for b in biases]).contiguous())
+
+
+_PACKS: "OrderedDict[tuple, tuple]" = OrderedDict()
+
+
+def packed_weights(weights, biases, kernel_sizes):
+    """`pack_weights`, made once per weight version. The key holds each
+    tensor's storage address, shape and in-place version counter; the entry
+    holds weak references to the tensors and is taken only while they all
+    live, so a storage freed and reused by other tensors can never hit it.
+    An in-place update (an optimizer step) or new tensors give a new pack;
+    packs of tensors that died are dropped."""
+    tensors = (*weights, *biases)
+    key = tuple((t.data_ptr(), tuple(t.shape), t.dtype, t.device, t._version)
+                for t in tensors) + (tuple(kernel_sizes),)
+    hit = _PACKS.get(key)
+    if hit is not None and all(r() is t for r, t in zip(hit[0], tensors)):
+        _PACKS.move_to_end(key)
+        return hit[1]
+    for k in [k for k, (refs, _) in _PACKS.items() if any(r() is None for r in refs)]:
+        del _PACKS[k]
+    pack = pack_weights(weights, biases, kernel_sizes)
+    _PACKS[key] = (tuple(weakref.ref(t) for t in tensors), pack)
+    while len(_PACKS) > PACK_CACHE_SIZE:
+        _PACKS.popitem(last=False)
+    return pack
+
+
+def _mrf_cuda(x, weights, biases, kernel_sizes, dilations, slope, out=None):
+    """Launch K3; `out` ([B, C, L] bf16, contiguous, 16-byte aligned) is
+    written in place of a new tensor when given."""
     b, c, length = x.shape
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
         raise TypeError("fused_mrf_level: the kernel takes contiguous bfloat16 x")
@@ -111,29 +180,31 @@ def _mrf_cuda(x, weights, biases, kernel_sizes, dilations, slope):
         raise ValueError(f"fused_mrf_level: C must be 32, 64 or a multiple of 128, got {c}")
     if len(kernel_sizes) != 3 or any(len(ds) != 3 for ds in dilations):
         raise ValueError("fused_mrf_level: the kernel takes 3 ResBlocks of 3 dilations")
+    if any(k % 2 == 0 for k in kernel_sizes):
+        raise ValueError("fused_mrf_level: the kernel takes odd kernel sizes")
     if len(weights) != 18 or len(biases) != 18:
         raise ValueError("fused_mrf_level: 18 weights and biases expected")
     for i, w in enumerate(weights):
         k = kernel_sizes[i // 6]
         if tuple(w.shape) != (c, c, k) or w.device != x.device:
             raise ValueError(f"fused_mrf_level: weight {i} has shape {tuple(w.shape)}")
-    w_packed = torch.cat(
-        [w.to(torch.bfloat16).permute(2, 1, 0).reshape(-1) for w in weights]
-    ).contiguous()
-    b_packed = torch.stack([bb.to(torch.bfloat16) for bb in biases]).contiguous()
-    hmax = halo(kernel_sizes, dilations)
-    t, rows, in_smem = tile_plan(c, length, hmax)
+    if x.data_ptr() % 16:
+        x = x.clone()  # the kernel's 16-byte loads
+    w_packed, b_packed = packed_weights(weights, biases, kernel_sizes)
+    t, rows, in_smem = tile_plan(c, length, kernel_sizes, dilations)
     n_work = b * -(-length // t)
     if in_smem:
         grid, workspace = n_work, None
     else:
-        grid = min(n_work, WORKSPACE_GRID)
+        grid = min(n_work, torch.cuda.get_device_properties(x.device).multi_processor_count)
         workspace = torch.empty(
-            grid * 2 * rows * (c + 8), dtype=torch.bfloat16, device=x.device
+            grid * 3 * rows * (c + 8), dtype=torch.bfloat16, device=x.device
         )
     plan = MrfPlan((ctypes.c_int * 3)(*kernel_sizes),
                    (ctypes.c_int * 9)(*[d for ds in dilations for d in ds]))
-    y = torch.empty_like(x)
+    y = torch.empty_like(x) if out is None else out
+    if y.shape != x.shape or y.dtype != x.dtype or not y.is_contiguous() or y.data_ptr() % 16:
+        raise ValueError("fused_mrf_level: out must be a contiguous, aligned tensor like x")
     fn = _build.load("mrf").mrf_level_fwd
     fn.restype = ctypes.c_int
     code = fn(
@@ -142,7 +213,7 @@ def _mrf_cuda(x, weights, biases, kernel_sizes, dilations, slope):
         ctypes.c_void_p(workspace.data_ptr() if workspace is not None else None),
         plan, ctypes.c_int(b), ctypes.c_int(c), ctypes.c_int(length),
         ctypes.c_int(t), ctypes.c_int(rows), ctypes.c_int(grid),
-        ctypes.c_float(slope), _build.stream_ptr(x.device),
+        ctypes.c_int(w_packed.shape[1]), ctypes.c_float(slope), _build.stream_ptr(x.device),
     )
     _build.check(code, "fused_mrf_level")
     fused_mrf_level.launches += 1
@@ -194,3 +265,11 @@ def mrf_flops(b: int, c: int, length: int, kernel_sizes, dilations) -> int:
     """Operations the level needs: 2 per multiply-add of its 18 convs."""
     per_pos = sum(2 * len(ds) * k for k, ds in zip(kernel_sizes, dilations))
     return 2 * b * length * c * c * per_pos
+
+
+def weight_l2_bytes(b: int, c: int, length: int, kernel_sizes, dilations) -> int:
+    """Bytes of weights the kernel streams from L2 for one level: every
+    weight unit once per tile (the packed taps, rounded up to whole units)."""
+    t, _, _ = tile_plan(c, length, kernel_sizes, dilations)
+    units = sum(6 * -(-k * c // UNIT_K) for k in kernel_sizes) * (c // co_width(c))
+    return b * -(-length // t) * units * co_width(c) * UNIT_K * 2

@@ -5,9 +5,10 @@ reflect padding of half a window) against a precomputed windowed basis, then
 a mel filterbank product and a log compression with a 1e-5 floor
 (TacotronSTFT). `stft_magnitude` is the plain version: unfold, one float32
 matrix product, magnitude. `stft_magnitude_cuda` (K4) launches
-`csrc/stft.cu`, which never materialises the frames and takes the product as
-three TF32 passes on the tensor cores over a basis packed by `pack_basis`
-into the kernel's tile order; it has no gradient, as
+`csrc/stft.cu`, which never materialises the frames and computes the same
+function as a float32 FFT in shared memory: the windowed basis is exactly the
+window times the DFT, so the kernel takes the window and a float32 table of
+twiddles built once in float64 (`fft_twiddles`). It has no gradient, as
 the JAX package's kernel has none, so differentiable callers use the plain
 functions (`frame_signal` is `Tensor.unfold`, whose autograd backward is the
 overlap-add). `MelFrontend.magnitude` launches the kernel for a CUDA tensor
@@ -17,21 +18,21 @@ and runs the plain version for a CPU tensor, with no other switch.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from consistencytta_torch.configs import STFTConfig
 from consistencytta_torch.ops import _build
-from consistencytta_torch.ops.mel import mel_filterbank, real_dft_basis
+from consistencytta_torch.ops.mel import hann_window, mel_filterbank, pad_center, real_dft_basis
 from consistencytta_torch.utils import resolve_device
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
-TILE_FRAMES = 64  # frames per block (TF in csrc/stft.cu)
-TILE_BINS = 64  # bins per block (TB)
-BASIS_STAGE_BYTES = 2 * 32 * 2 * TILE_BINS * 4  # two staged basis tiles
-SPAN_SKEW = 8  # words the kernel skips in its staged span every hop samples
-GROUP_ORDER = (0, 4, 1, 5, 2, 6, 3, 7)  # sample order within a group of 8
+FFT_LENGTH = 1024  # the kernel's filter length: a 32 x 32 four-step FFT
+FFT_RADIX = 32
+TILE_FRAMES = 32  # frames per block (FPB in csrc/stft.cu)
+EXCHANGE_BYTES = (8 * 32 * 33 + 16) * 8  # per-warp transpose buffers and W_32
 
 
 def frame_signal(wav: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
@@ -51,16 +52,27 @@ def reflect_pad(wav: torch.Tensor, pad: int) -> torch.Tensor:
 
 
 def _matmul_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b in float32 at full precision: on the card the product must not
-    drop to TF32, whatever the caller has set."""
-    if not a.is_cuda:
+    """a @ b in float32 at full precision, whatever the caller has set: on
+    the card the product must not drop to TF32, and on a CPU with bf16
+    matrix units a oneDNN float32 precision of "bf16" (what
+    torch.set_float32_matmul_precision("medium") sets) makes it bf16 passes,
+    which lose three decimal digits."""
+    if a.is_cuda:
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return torch.matmul(a, b)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+    onednn = getattr(torch.backends.mkldnn, "matmul", None)
+    prev = getattr(onednn, "fp32_precision", "ieee")
+    if prev == "ieee":
         return torch.matmul(a, b)
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    onednn.fp32_precision = "ieee"
     try:
         return torch.matmul(a, b)
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        onednn.fp32_precision = prev
 
 
 def _spectrum(wav, cos_basis, sin_basis, hop_length, center_pad):
@@ -83,67 +95,86 @@ def stft_power(wav, cos_basis, sin_basis, hop_length: int, center_pad: int):
     return re * re + im * im
 
 
-def pack_basis(cos_basis: torch.Tensor, sin_basis: torch.Tensor) -> torch.Tensor:
-    """The [L, n_bins] cos and sin bases in the order K4 stages them:
-    [bin tile][L / 8][128 columns: 64 cos, then the 64 sin of the same bins]
-    [8 samples as k0 k4 k1 k5 k2 k6 k3 k7], zero columns past n_bins. A tile
-    of 32 window samples is then one contiguous 16 KB copy, and the two
-    values a thread needs of a column (samples t and t + 4) are adjacent."""
-    length, n_bins = cos_basis.shape
-    tiles = -(-n_bins // TILE_BINS)
-    pad = (0, tiles * TILE_BINS - n_bins)
-    both = torch.stack([torch.nn.functional.pad(b, pad).reshape(length, tiles, TILE_BINS)
-                        for b in (cos_basis, sin_basis)], dim=2)  # [L, tiles, 2, 64]
-    groups = both.reshape(length // 8, 8, tiles, 2 * TILE_BINS)[:, list(GROUP_ORDER)]
-    return groups.permute(2, 0, 3, 1).contiguous()
+def fft_twiddles() -> np.ndarray:
+    """The kernel's twiddle table, [R * R + R / 2, 2] float32 (re, im) with
+    R = 32 and N = 1024: W_N^(n1 k2) at row k2 * R + n1, then W_R^e for
+    e < R / 2, where W_M = exp(-2 pi i / M). Built in float64 and rounded
+    once to float32."""
+    r = FFT_RADIX
+    k2, n1 = np.meshgrid(np.arange(r), np.arange(r), indexing="ij")
+    ang = np.concatenate([(n1 * k2).reshape(-1) / FFT_LENGTH, np.arange(r // 2) / r])
+    w = np.exp(-2j * np.pi * ang)
+    return np.stack([w.real, w.imag], axis=1).astype(np.float32)
+
+
+_TWIDDLES: Dict[torch.device, torch.Tensor] = {}
+
+
+def _twiddles_on(device: torch.device) -> torch.Tensor:
+    if device not in _TWIDDLES:
+        _TWIDDLES[device] = torch.from_numpy(fft_twiddles()).to(device)
+    return _TWIDDLES[device]
+
+
+def fft_smem_bytes(hop_length: int) -> int:
+    """Shared memory of one K4 block (mirrors smem_bytes in csrc/stft.cu):
+    the transpose buffers, the window and the span of TILE_FRAMES frames."""
+    return EXCHANGE_BYTES + (2 * FFT_LENGTH + (TILE_FRAMES - 1) * hop_length) * 4
 
 
 def stft_magnitude_cuda(wav, cos_basis, sin_basis, hop_length: int, center_pad: int,
-                        packed=None):
+                        window=None):
     """K4: the same function in one launch on the raw [B, T] float32
-    waveform; reflect padding, framing, the DFT product (three TF32 passes
-    with float32-grade accuracy) and the magnitude all happen inside the
-    kernel. `packed` is `pack_basis(cos_basis, sin_basis)`, for a caller
-    that keeps it; it is made here when not given."""
+    waveform; reflect padding, framing, windowing, the FFT and the magnitude
+    all happen inside the kernel, in float32. The bases must be
+    `real_dft_basis` of the window (window times the DFT, as MelFrontend's
+    are): the kernel takes `window` ([L] float32, the padded window), by
+    default the cos basis's bin-0 column, which is the window exactly."""
     if wav.requires_grad:
         raise RuntimeError(
             "stft_magnitude_cuda has no gradient; use stft_magnitude or stft_power"
         )
     length, n_bins = cos_basis.shape
-    for name, t in (("wav", wav), ("cos_basis", cos_basis), ("sin_basis", sin_basis)):
+    if window is None:
+        window = cos_basis[:, 0].contiguous()
+    for name, t in (("wav", wav), ("cos_basis", cos_basis), ("sin_basis", sin_basis),
+                    ("window", window)):
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != wav.device:
             raise TypeError(f"stft_magnitude_cuda: {name} must be contiguous float32 on wav's device")
     if wav.ndim != 2 or tuple(sin_basis.shape) != (length, n_bins):
         raise ValueError("stft_magnitude_cuda: wav [B, T], bases [L, n_bins] expected")
+    if length != FFT_LENGTH or n_bins != length // 2 + 1:
+        raise ValueError(
+            f"stft_magnitude_cuda: the FFT kernel takes a filter of {FFT_LENGTH} samples "
+            f"and its {FFT_LENGTH // 2 + 1} bins, got {length} and {n_bins}"
+        )
+    if window.ndim != 1 or window.shape[0] != length:
+        raise ValueError(
+            f"stft_magnitude_cuda: the window must be padded to the filter length {length}, "
+            f"got {tuple(window.shape)}"
+        )
     b, t = wav.shape
     if center_pad and t <= center_pad:
         raise ValueError(
             f"reflect padding of {center_pad} needs more than {center_pad} samples, got {t}"
         )
-    if hop_length % 8 or length % 32 or t + 2 * center_pad < length:
+    if t + 2 * center_pad < length:
+        raise ValueError("stft_magnitude_cuda: the padded signal holds no frame")
+    if hop_length < 1 or fft_smem_bytes(hop_length) > SMEM_LIMIT:
         raise ValueError(
-            "stft_magnitude_cuda: the kernel takes hop % 8 == 0, window % 32 == 0 "
-            "and at least one frame"
+            f"stft_magnitude_cuda: a block's {TILE_FRAMES} frames at hop {hop_length} "
+            f"need {fft_smem_bytes(max(hop_length, 0))} bytes of shared memory"
         )
-    span = (TILE_FRAMES - 1) * hop_length + length
-    smem = (span + SPAN_SKEW * (span // hop_length + 1)) * 4 + BASIS_STAGE_BYTES
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"stft_magnitude_cuda: a tile of frames needs {smem} bytes of shared memory")
-    if packed is None:
-        packed = pack_basis(cos_basis, sin_basis)
-    tiles = -(-n_bins // TILE_BINS)
-    if (tuple(packed.shape) != (tiles, length // 8, 2 * TILE_BINS, 8) or packed.device != wav.device
-            or packed.dtype != torch.float32 or not packed.is_contiguous()):
-        raise ValueError("stft_magnitude_cuda: packed is not pack_basis(cos_basis, sin_basis)")
     n_frames = (t + 2 * center_pad - length) // hop_length + 1
     out = torch.empty((b, n_frames, n_bins), dtype=torch.float32, device=wav.device)
     fn = _build.load("stft").stft_magnitude_fwd
     fn.restype = ctypes.c_int
     code = fn(
-        ctypes.c_void_p(wav.data_ptr()), ctypes.c_void_p(packed.data_ptr()),
+        ctypes.c_void_p(wav.data_ptr()), ctypes.c_void_p(window.data_ptr()),
+        ctypes.c_void_p(_twiddles_on(wav.device).data_ptr()),
         ctypes.c_void_p(out.data_ptr()),
         ctypes.c_int(b), ctypes.c_int(t), ctypes.c_int(length), ctypes.c_int(hop_length),
-        ctypes.c_int(center_pad), ctypes.c_int(n_frames), ctypes.c_int(n_bins),
+        ctypes.c_int(center_pad), ctypes.c_int(n_frames),
         _build.stream_ptr(wav.device),
     )
     _build.check(code, "stft_magnitude_cuda")
@@ -155,8 +186,14 @@ stft_magnitude_cuda.launches = 0
 
 
 def stft_flops(b: int, n_frames: int, length: int, n_bins: int) -> int:
-    """Operations of the DFT product: 2 per multiply-add."""
+    """Operations of the DFT as a product with the basis: 2 per multiply-add
+    (what the plain version and K4's first designs did)."""
     return 2 * b * n_frames * length * 2 * n_bins
+
+
+def stft_fft_flops(b: int, n_frames: int, length: int) -> int:
+    """Operations of K4's FFT: 5 N log2 N per complex FFT of two frames."""
+    return b * -(-n_frames // 2) * 5 * length * int(np.log2(length))
 
 
 class MelFrontend:
@@ -181,7 +218,8 @@ class MelFrontend:
         self.cos_basis = torch.from_numpy(cos_b).to(device)
         self.sin_basis = torch.from_numpy(sin_b).to(device)
         self.mel_fb_t = torch.from_numpy(mel_fb.T.copy()).to(device)  # [n_bins, n_mels]
-        self._packed = None  # pack_basis of the two bases, made at K4's first launch
+        window = pad_center(hann_window(config.win_length, dtype=np.float64), config.filter_length)
+        self.window = torch.from_numpy(window.astype(np.float32)).to(device)  # K4's input
 
     @property
     def n_bins(self) -> int:
@@ -192,9 +230,7 @@ class MelFrontend:
         hop, pad = self.config.hop_length, self.config.filter_length // 2
         if not wav.is_cuda:
             return stft_magnitude(wav, self.cos_basis, self.sin_basis, hop, pad)
-        if self._packed is None:
-            self._packed = pack_basis(self.cos_basis, self.sin_basis)
-        return stft_magnitude_cuda(wav, self.cos_basis, self.sin_basis, hop, pad, self._packed)
+        return stft_magnitude_cuda(wav, self.cos_basis, self.sin_basis, hop, pad, self.window)
 
     def __call__(self, wav: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """[B, T] waveform in [-1, 1] -> (log-mel [B, n_frames, n_mels],

@@ -14,10 +14,10 @@ outputs by about 0.5% on both measures; a wrong softmax scale or a dropped
 key tile moves them by 9% or more.
 
 The STFT magnitude is float32 in and out and is held to float32 grade: the
-largest error at most 1e-5 of the output's largest magnitude (two orders of
-1024-term float32 sums differ by about 1e-6 of it), which a single bf16 or
-TF32 pass (1e-3 to 1e-4 of it), zero padding or a dropped window tail all
-fail.
+largest error at most 1e-5 of the output's largest magnitude (a float32 FFT
+and a float32 product of 1024 terms differ by about 1e-6 of it), which a
+single bf16 or TF32 pass (1e-3 to 1e-4 of it), zero padding or a dropped
+window tail all fail.
 """
 
 import pytest
@@ -152,12 +152,72 @@ def test_kernels_refuse_what_they_do_not_take(gen):
                             [], [], KS, DS, 0.1)
 
 
-@pytest.mark.parametrize("c,length", [(32, 3000), (64, 1000), (128, 700), (512, 300)])
-def test_fused_mrf_level(gen, c, length):
-    x = (torch.randn(2, c, length, device="cuda", generator=gen) * 0.5).bfloat16()
+def _mrf_inputs(gen, b, c, length):
+    x = (torch.randn(b, c, length, device="cuda", generator=gen) * 0.5).bfloat16()
     ws = [(torch.randn(c, c, k, device="cuda", generator=gen) / (c * k) ** 0.5).bfloat16()
           for k in KS for _ in range(6)]
     bs = [(torch.randn(c, device="cuda", generator=gen) * 0.05).bfloat16() for _ in range(18)]
+    return x, ws, bs
+
+
+# per width: below one tile, across a tile's edge (T + 5), a prime length, and
+# batch 32 over several tiles; then the wider levels (workspace at C = 512)
+MRF_CASES = [(1, 32, 97), (2, 32, 661), (1, 32, 2003), (32, 32, 2 * 656 + 9),
+             (1, 64, 97), (2, 64, 405), (1, 64, 2003), (32, 64, 2 * 400 + 9),
+             (1, 128, 97), (2, 128, 245), (1, 128, 2003), (32, 128, 2 * 240 + 9),
+             (2, 256, 700), (2, 512, 300), (1, 512, 1031)]
+
+
+@pytest.mark.parametrize("b,c,length", MRF_CASES)
+def test_fused_mrf_level(gen, b, c, length):
+    x, ws, bs = _mrf_inputs(gen, b, c, length)
+    before = mrf.fused_mrf_level.launches
+    got = mrf.fused_mrf_level(x, ws, bs, KS, DS, 0.1)
+    torch.cuda.synchronize()
+    assert mrf.fused_mrf_level.launches == before + 1
+    assert_close_rel(got, mrf.mrf_level_plain(x, ws, bs, KS, DS, 0.1), 3e-2)
+
+
+@pytest.mark.parametrize("c", [32, 64, 128])
+def test_mrf_tolerance_rejects_planted_faults(gen, c):
+    """The kernel passes, and the plain level with a tile of 64 positions
+    left at x, without the zero padding at the edges, or without its biases
+    fails the same tolerance."""
+    x, ws, bs = _mrf_inputs(gen, 2, c, 1500)
+    want = mrf.mrf_level_plain(x, ws, bs, KS, DS, 0.1)
+    assert_close_rel(mrf.fused_mrf_level(x, ws, bs, KS, DS, 0.1), want, 3e-2)
+    tile = want.clone()
+    tile[..., 700:764] = x[..., 700:764]
+    unzeroed = torch.nn.functional.pad(x, (64, 64), mode="replicate")
+    faults = {
+        "tile_skipped": tile,
+        "edges_not_zeroed": mrf.mrf_level_plain(unzeroed, ws, bs, KS, DS, 0.1)[..., 64:-64],
+        "biases_dropped": mrf.mrf_level_plain(x, ws, [bb * 0 for bb in bs], KS, DS, 0.1),
+    }
+    for name, bad in faults.items():
+        with pytest.raises(AssertionError):
+            assert_close_rel(bad, want, 3e-2)
+            pytest.fail(name)  # not reached when the fault is caught
+
+
+@pytest.mark.parametrize("b,c,length", [(2, 32, 661), (1, 128, 245), (1, 512, 300)])
+def test_mrf_writes_nothing_outside_its_output(gen, b, c, length):
+    """The output lands inside a longer buffer filled with a sentinel; every
+    element before and after [B, C, L] keeps it."""
+    x, ws, bs = _mrf_inputs(gen, b, c, length)
+    n, pad = x.numel(), 4096
+    buffer = torch.full((n + 2 * pad,), -7.0, device="cuda", dtype=torch.bfloat16)
+    out = buffer[pad:pad + n].view(b, c, length)
+    mrf._mrf_cuda(x, ws, bs, KS, DS, 0.1, out=out)
+    torch.cuda.synchronize()
+    assert (buffer[:pad] == -7.0).all() and (buffer[pad + n:] == -7.0).all()
+    assert_close_rel(out, mrf.mrf_level_plain(x, ws, bs, KS, DS, 0.1), 3e-2)
+
+
+def test_mrf_repacks_after_an_in_place_weight_update(gen):
+    x, ws, bs = _mrf_inputs(gen, 1, 64, 500)
+    mrf.fused_mrf_level(x, ws, bs, KS, DS, 0.1)
+    ws[4].mul_(-1.0)
     got = mrf.fused_mrf_level(x, ws, bs, KS, DS, 0.1)
     assert_close_rel(got, mrf.mrf_level_plain(x, ws, bs, KS, DS, 0.1), 3e-2)
 
@@ -172,7 +232,8 @@ def _stft_close(got, want):
         (got - want).abs().max().item() <= STFT_TOL * want.abs().max().item()
 
 
-@pytest.mark.parametrize("b,t", [(2, 160000), (1, 513), (3, 10240), (1, 32007)])
+@pytest.mark.parametrize("t", [513, 32007, 160000])
+@pytest.mark.parametrize("b", [1, 8, 32])
 def test_stft_magnitude(gen, b, t):
     fe = stft.MelFrontend(STFTConfig(), device="cuda")
     wav = torch.randn(b, t, device="cuda", generator=gen) * 0.3
@@ -194,8 +255,15 @@ def test_stft_tolerance_rejects_planted_faults(gen):
     zero_padded = torch.nn.functional.pad(wav, (512, 512))
     tail = torch.ones(1024, 1, device="cuda")
     tail[-64:] = 0
+    frames = stft.frame_signal(stft.reflect_pad(wav, 512), 1024, 160)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        re, im = torch.matmul(frames, torch.cat([cos_b, sin_b], 1)).split(513, -1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
     faults = {
         "single_bf16_pass": stft.stft_magnitude(rounded(wav), rounded(cos_b), rounded(sin_b), 160, 512),
+        "single_tf32_pass": torch.sqrt(re * re + im * im),
         "zero_padding": stft.stft_magnitude(zero_padded, cos_b, sin_b, 160, 0),
         "window_tail_dropped": stft.stft_magnitude(wav, cos_b * tail, sin_b * tail, 160, 512),
     }
@@ -211,6 +279,16 @@ def test_stft_kernel_refuses_what_it_does_not_take(gen):
         fe.magnitude(torch.zeros(1, 4000, device="cuda", requires_grad=True))
     with pytest.raises(TypeError):
         fe.magnitude(torch.zeros(1, 4000, device="cuda", dtype=torch.float64))
+    wav = torch.zeros(1, 4000, device="cuda")
+    small = stft.MelFrontend(STFTConfig(filter_length=512, win_length=512), device="cuda")
+    with pytest.raises(ValueError, match="filter of 1024"):  # not the kernel's 32 x 32
+        small.magnitude(wav)
+    with pytest.raises(ValueError, match="window"):  # longer than the filter
+        stft.stft_magnitude_cuda(wav, fe.cos_basis, fe.sin_basis, 160, 512,
+                                 torch.ones(2048, device="cuda"))
+    with pytest.raises(ValueError, match="shared memory"):
+        stft.stft_magnitude_cuda(torch.zeros(1, 200000, device="cuda"), fe.cos_basis,
+                                 fe.sin_basis, 5000, 512)
 
 
 # -- K5: dilated conv1d ------------------------------------------------------

@@ -86,14 +86,72 @@ def test_level_grad_flows_through_plain_chain():
 
 def test_halo_and_tile_plan():
     assert mrf.halo(KS, DS) == 60
-    assert mrf.tile_plan(32, 163840, 60) == (512, 648, True)
-    assert mrf.tile_plan(64, 81920, 60) == (512, 648, True)
-    assert mrf.tile_plan(128, 40960, 60) == (224, 360, True)
-    assert mrf.tile_plan(32, 100, 60) == (128, 264, True)  # no more than L needs
-    assert mrf.tile_plan(512, 5120, 60) == (64, 200, False)
-    for c, length in ((32, 163840), (64, 81920), (128, 40960)):
-        t, rows, _ = mrf.tile_plan(c, length, 60)
-        assert mrf.smem_bytes(c, rows, True) <= mrf.SMEM_LIMIT
+    # the generate path's levels at batch 32: C = 32, 64, 128 in shared memory
+    assert mrf.tile_plan(32, 163872, KS, DS) == (656, 776, True)
+    assert mrf.tile_plan(64, 81936, KS, DS) == (400, 520, True)
+    assert mrf.tile_plan(128, 40968, KS, DS) == (144, 264, True)
+    assert mrf.tile_plan(32, 100, KS, DS) == (104, 224, True)  # no more than L needs
+    assert mrf.tile_plan(512, 5121, KS, DS) == (144, 264, False)
+
+
+@pytest.mark.parametrize("c,length", [(32, 163872), (64, 81936), (128, 40968), (256, 20484),
+                                      (512, 5121), (512, 2048), (128, 700), (32, 3000)])
+def test_tile_plan_fits_the_block(c, length):
+    """At every width the vocoder gives the kernel: the block's shared memory
+    fits SMEM_LIMIT, its rows hold every ResBlock's T + 2 H_k, and the widest
+    conv range (the first conv's output) fits the consumers' m-tiles."""
+    t, rows, in_smem = mrf.tile_plan(c, length, KS, DS)
+    assert t % 8 == 0 and 8 <= t <= -(-length // 8) * 8
+    assert mrf.smem_bytes(c, rows, in_smem) <= mrf.SMEM_LIMIT
+    for k, ds in zip(KS, DS):
+        hk = sum((d + 1) * (k - 1) // 2 for d in ds)
+        assert t + 2 * hk <= rows
+        assert t + 2 * hk - 2 * ds[0] * (k - 1) // 2 <= 2 * 64 * mrf.m_tiles(c)
+
+
+def _unpack(packed, kernel_sizes, c):
+    """The inverse of the kernel's weight pack: 18 [C_out, C_in, k]."""
+    return [packed[i * c:(i + 1) * c, :k * c].reshape(c, k, c).permute(0, 2, 1)
+            for i, k in enumerate(kernel_sizes[i // 6] for i in range(18))]
+
+
+@pytest.mark.parametrize("c", [32, 64, 128])
+def test_weight_pack_round_trips(c):
+    """The K-major pack (row conv * C + c_out, column t * C + c_in, zeros
+    after the last tap) gives back every torch [C_out, C_in, k] weight."""
+    g = torch.Generator().manual_seed(c)
+    ws = [torch.randn(c, c, k, generator=g) for k in KS for _ in range(6)]
+    bs = [torch.randn(c, generator=g) for _ in range(18)]
+    w_packed, b_packed = mrf.pack_weights(ws, bs, KS)
+    assert w_packed.shape == (18 * c, -(-11 * c // 64) * 64) and w_packed.dtype == torch.bfloat16
+    for got, want in zip(_unpack(w_packed, KS, c), ws):
+        assert torch.equal(got, want.bfloat16())
+    assert torch.equal(w_packed[c + 5, 2 * c + 7], ws[1][5, 7, 2].bfloat16())
+    assert not w_packed[:6 * c, 3 * c:].any()  # past the k = 3 convs' last tap
+    assert torch.equal(b_packed, torch.stack(bs).bfloat16())
+
+
+def test_pack_cache_repacks_after_in_place_update():
+    g = torch.Generator().manual_seed(0)
+    ws = [torch.randn(32, 32, k, generator=g) for k in KS for _ in range(6)]
+    bs = [torch.randn(32, generator=g) for _ in range(18)]
+    first = mrf.packed_weights(ws, bs, KS)
+    assert mrf.packed_weights(ws, bs, KS) is first  # same version: the same pack
+    with torch.no_grad():
+        ws[7].mul_(2.0)  # an optimizer step updates in place
+    second = mrf.packed_weights(ws, bs, KS)
+    assert second is not first
+    assert torch.equal(_unpack(second[0], KS, 32)[7], ws[7].bfloat16())
+    bs[3].add_(1.0)
+    assert torch.equal(mrf.packed_weights(ws, bs, KS)[1][3], bs[3].bfloat16())
+    # new tensors with the same values are packed anew, never confused with the old
+    assert mrf.packed_weights([w.clone() for w in ws], bs, KS)[0] is not second[0]
+    # the cache holds no tensor alive: the packs of dead weights are dropped
+    del ws, bs, first, second
+    live_w = [torch.ones(32, 32, k) for k in KS for _ in range(6)]
+    live_b = [torch.ones(32) for _ in range(18)]
+    mrf.packed_weights(live_w, live_b, KS)
+    assert all(r() is not None for refs, _ in mrf._PACKS.values() for r in refs)
 
 
 def test_hifigan_generator_matches_jax():
