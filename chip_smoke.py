@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `consistencytta_torch/csrc/` (one nvcc per
-source, in parallel, into `build/`), then runs five phases, each printing
+source, in parallel, into `build/`), then runs six phases, each printing
 JSON lines:
 
   env      card name and power limit (nvidia-smi), torch / CUDA versions,
@@ -33,7 +33,9 @@ JSON lines:
            window tail; its library call is torch.stft, its kernel is an FFT
            whose operations are counted at the 67 TFLOP/s FP32 rate (the
            bytes bound it), and a replayed CUDA graph gives its device time
-           without the host's launch. The
+           without the host's launch; the same at the evaluation frontend's
+           512-point filter (B = 32 and 1). The attention kernel also runs at
+           batch 64, the CFG teacher's batch behind a generate batch of 32. The
            standalone dilated conv runs at B = 32, C = 64, L = 81936 for its
            six (k, d) pairs, beside F.conv1d;
   main     the main path: Pipeline.create at the full PipelineConfig
@@ -56,6 +58,19 @@ JSON lines:
            against the same weights in fp32 on the CPU through the plain
            versions; seconds per step, samples/s, peak memory and the time
            of each part of a step;
+  serve    the test-set CLI (consistencytta_torch.cli.inference.main, in
+           this process) at full width from reference-format checkpoints
+           (the full model with its legacy role names, the AudioLDM VAE with
+           its vocoder) of seeded random bf16 weights, written under
+           outputs/ and deleted at the end: a 32-row manifest at batch 32
+           with the 18-step Heun CFG teacher (--use_edm --use_ema
+           --query_teacher), then --stage 1 with 20 DDIM steps; the wavs
+           (int16, 16 kHz, 10 s, not silent), all_mels.npz ([32, 1001, 64]
+           in [0, 1]) and the summary.jsonl line; the launch counters against
+           the counts the code implies; every tensor the loader fills equal
+           to the saved one; a 2-step teacher and a 2-step guided student at
+           batch 1 against the same weights in fp32 on the CPU; the seconds
+           of each part and the peak memory;
   kernels  one line naming every kernel with its launches, error and times.
 
 Then the nvidia-smi line, then the last line
@@ -68,6 +83,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -139,6 +155,180 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+SERVE_TEACHER_STEPS = 18  # the CLI's default --num_teacher_steps (Heun: 35 queries)
+SERVE_STAGE1_STEPS = 20  # --stage 1 --num_steps 20 (DDIM: 20 queries)
+LEGACY_PREFIX = {"student": "consistency_unet.", "student_target": "consistency_ema_unet.",
+                 "student_ema": "consistency_slow_ema_unet.", "teacher": "diffusion_unet."}
+SERVE_PLACES = ["", " nearby", " far away", " at night"]
+
+
+def serve_phase(torch, config, serve_dir, reset_counters, read_counters, fused_levels, tok,
+                dev):
+    """The test-set CLI at full width from reference-format checkpoints of
+    seeded random bf16 weights: stage 2 with the 18-step Heun CFG teacher,
+    then stage 1 (the guided student, 20 DDIM steps), both at batch 32 on a
+    32-row manifest; the files they write; every tensor the loader fills
+    against the saved one; and a 2-step teacher and a 2-step guided student
+    at batch 1 against the same weights in fp32 on the CPU. Returns the
+    phase's JSON line and its launch counts."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from consistencytta_torch.cli import inference as cli
+    from consistencytta_torch.inference.generate import (
+        build_guided_student_generate_fn, build_teacher_generate_fn,
+    )
+    from consistencytta_torch.io import checkpoints
+    from consistencytta_torch.models.pipeline import STUDENT_ROLES, Pipeline
+    from consistencytta_torch.text.tokenizer import tokenize_with_uncond
+
+    torch.cuda.reset_peak_memory_stats()
+    roles = STUDENT_ROLES + ("teacher",)
+    src = Pipeline.create(config, dtype=torch.bfloat16, device="cuda", seed=1, roles=roles)
+    # the reference formats: the full model with its legacy role names, the
+    # AudioLDM checkpoint with its vocoder; the student roles share one module,
+    # so one CPU copy of it stands for all three (torch.save stores it once)
+    t0 = time.perf_counter()
+    cpu_sd = lambda m: {k: v.detach().cpu() for k, v in m.state_dict().items()}
+    by_module = {}
+    unet_sd = {r: by_module.setdefault(id(m), cpu_sd(m)) for r, m in src.unets.items()}
+    vae_sd, voc_sd = cpu_sd(src.vae), cpu_sd(src.vocoder)
+    model_path = os.path.join(serve_dir, "pytorch_model_2.bin")
+    vae_path = os.path.join(serve_dir, "audioldm-s-full.ckpt")
+    torch.save({LEGACY_PREFIX[r] + k: v for r, sd in unet_sd.items() for k, v in sd.items()},
+               model_path)
+    torch.save({"state_dict": {**{"first_stage_model." + k: v for k, v in vae_sd.items()},
+                               **{"first_stage_model.vocoder." + k: v
+                                  for k, v in voc_sd.items()}}}, vae_path)
+    save_s = time.perf_counter() - t0
+    checkpoint_gb = (os.path.getsize(model_path) + os.path.getsize(vae_path)) / 1e9
+    names = [f"audiocaps_{i:02d}.wav" for i in range(BATCH)]
+    manifest = os.path.join(serve_dir, "test.jsonl")
+    with open(manifest, "w") as f:
+        for i, name in enumerate(names):
+            caption = PROMPTS[i % len(PROMPTS)] + SERVE_PLACES[i // len(PROMPTS) % 4]
+            f.write(json.dumps({"captions": caption, "location": f"clips/{name}"}) + "\n")
+    common = ["--model", model_path, "--vae_checkpoint", vae_path, "--test_file", manifest,
+              "--batch_size", str(BATCH), "--use_bf16", "--skip_eval",
+              "--text_len", str(TEXT_LEN)]
+
+    def run(argv, expected):
+        reset_counters()
+        t0 = time.perf_counter()
+        result = cli.main(common + argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counters()
+        if counts != expected:
+            fail(f"serve {argv}: launch counts {counts} != expected {expected}")
+        return result, wall, counts
+
+    def check_wavs(directory):
+        listing = sorted(n for n in os.listdir(directory) if n.endswith(".wav"))
+        if listing != names:
+            fail(f"serve: {directory} holds {listing[:3]}..., not the manifest's names")
+        for n in names:
+            sr, data = wavfile.read(os.path.join(directory, n))
+            if sr != 16000 or data.dtype != np.int16 or data.shape != (160000,) \
+                    or not np.abs(data).max() > 0:
+                fail(f"serve: {n}: {sr} Hz, {data.dtype}, {data.shape}, peak {np.abs(data).max()}")
+
+    # stage 2: the consistency student (1 query) and the teacher (2 x 18 - 1
+    # queries at the CFG batch of 64), 16 attention launches a query; a decode
+    # each (K2 once, K3 at each fused level); one 512-point frontend launch
+    # for the batch's mels
+    out = os.path.join(serve_dir, "stage2")
+    queries = 1 + 2 * SERVE_TEACHER_STEPS - 1
+    expected = {"flash_mha_packed": 16 * queries, "flash_self_attention": 2,
+                "fused_mrf_level": 2 * fused_levels, "stft_magnitude": 1, "dilated_conv1d": 0}
+    res2, wall2, counts2 = run(["--use_edm", "--use_ema", "--query_teacher", "--num_teacher_steps",
+                                str(SERVE_TEACHER_STEPS), "--output_dir", out], expected)
+    check_wavs(out)
+    check_wavs(out + "_teacher")
+    mels = np.load(os.path.join(out, "all_mels.npz"))
+    if list(mels["names"]) != names or mels["mels"].shape != (BATCH, 1001, 64) \
+            or not (np.isfinite(mels["mels"]).all() and mels["mels"].min() >= 0
+                    and mels["mels"].max() <= 1) or int(mels["target_centisec"]) != 1000:
+        fail(f"serve: all_mels.npz {mels['mels'].shape} in [{mels['mels'].min()}, "
+             f"{mels['mels'].max()}]")
+    with open(os.path.join(out, "summary.jsonl")) as f:
+        lines = f.read().splitlines()
+    if len(lines) != 1 or json.loads(lines[0])["num_clips"] != BATCH:
+        fail(f"serve: summary.jsonl holds {len(lines)} lines")
+
+    # stage 1: the guided student, DDIM, no teacher
+    out1 = os.path.join(serve_dir, "stage1")
+    expected1 = {"flash_mha_packed": 16 * SERVE_STAGE1_STEPS, "flash_self_attention": 1,
+                 "fused_mrf_level": fused_levels, "stft_magnitude": 1, "dilated_conv1d": 0}
+    res1, wall1, counts1 = run(["--stage", "1", "--num_steps", str(SERVE_STAGE1_STEPS),
+                                "--output_dir", out1], expected1)
+    check_wavs(out1)
+    launches = {k: counts2[k] + counts1[k] for k in counts2}
+
+    # the loader fills every tensor a checkpoint holds: NaN first, then load
+    for m in (*{id(m): m for m in src.unets.values()}.values(), src.vae, src.vocoder):
+        for t in m.state_dict().values():
+            if t.is_floating_point():
+                t.fill_(float("nan"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = checkpoints.load_frozen_and_roles(src, model_path=model_path,
+                                               vae_checkpoint=vae_path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    pairs = [(f"{r}.{k}", v, unet_sd[r][k]) for r, m in src.unets.items()
+             for k, v in m.state_dict().items()]
+    pairs += [(f"vae.{k}", v, vae_sd[k]) for k, v in src.vae.state_dict().items()]
+    pairs += [(f"vocoder.{k}", v, voc_sd[k]) for k, v in src.vocoder.state_dict().items()]
+    unequal = [name for name, got, want in pairs if not torch.equal(got.cpu(), want)]
+    if unequal or set(loaded) != {"vae", "vocoder", *roles}:
+        fail(f"serve: loaded {sorted(loaded)}; tensors unequal to the saved ones: {unequal[:5]}")
+
+    # agreement: 2-step samplers at batch 1 with given noise, on the card and
+    # with the same weights in fp32 on the CPU through the plain versions
+    cpu = lambda m: copy.deepcopy(m).to("cpu", torch.float32)
+    ref = Pipeline(config, {r: cpu(src.unets[r]) for r in ("teacher", "student_ema")},
+                   cpu(src.vae), cpu(src.vocoder), cpu(src.t5), torch.device("cpu"),
+                   torch.float32)
+    ids, mask, uids, umask = tokenize_with_uncond(tok, PROMPTS[:1], TEXT_LEN)
+    noise = torch.randn(src.latent_shape(1), generator=torch.Generator().manual_seed(11))
+    agreement = {}
+    for name, build in (
+            ("teacher_heun_2_steps", lambda p: build_teacher_generate_fn(p, 2, use_edm=True)),
+            ("guided_student_ddim_2_steps",
+             lambda p: build_guided_student_generate_fn(p, 2, use_ema=True, use_edm=False))):
+        got = build(src)(ids, mask, uids, umask, 4.0, noise=noise.to(dev)).cpu()
+        t0 = time.perf_counter()
+        want = build(ref)(ids, mask, uids, umask, 4.0, noise=noise)
+        agreement[name] = {"rel_l2": ((got - want).norm() / want.norm()).item(),
+                           "cpu_fp32_seconds": time.perf_counter() - t0}
+    line = {
+        "phase": "serve", "config": "PipelineConfig() light UNet + teacher, T5-large, bf16; "
+        "reference-format checkpoints of seeded random weights; hash tokenizer",
+        "manifest_rows": BATCH, "batch": BATCH,
+        "checkpoint_gb": checkpoint_gb, "checkpoint_save_seconds": save_s,
+        "stage2": {"argv": "--use_edm --use_ema --query_teacher --use_bf16", **res2,
+                   "wall_seconds": wall2,
+                   "student_clips_per_s_with_io": BATCH / (res2["gen_seconds"]
+                                                           + res2["write_seconds"]
+                                                           + res2["mel_seconds"]),
+                   "teacher_clips_per_s_with_io": BATCH / (res2["teacher_seconds"]
+                                                           + res2["teacher_write_seconds"]),
+                   "teacher_queries": 2 * SERVE_TEACHER_STEPS - 1},
+        "stage1": {"argv": f"--stage 1 --num_steps {SERVE_STAGE1_STEPS} --use_bf16", **res1,
+                   "wall_seconds": wall1},
+        "launches": launches, "launches_stage2": counts2, "launches_stage1": counts1,
+        "reload_seconds": load_s, "reloaded_tensors_equal": len(pairs),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "reference": {**agreement, "tol_rel_l2": 0.1},
+    }
+    bad = {k: v["rel_l2"] for k, v in agreement.items() if not v["rel_l2"] <= 0.1}
+    if bad:
+        emit(line)
+        fail(f"serve: samplers differ from the fp32 CPU reference: {bad}")
+    return line, launches
+
+
 def main() -> None:
     try:
         import torch
@@ -151,6 +341,7 @@ def main() -> None:
     sys.path.insert(0, root)
     try:
         from consistencytta_torch.configs import PipelineConfig
+        from consistencytta_torch.evaluation.mels import EVAL_STFT
         from consistencytta_torch.inference.generate import GenerateConfig, build_generate_fn
         from consistencytta_torch.models.pipeline import Pipeline
         from consistencytta_torch.nn.hifigan import FUSE_MAX_CHANNELS
@@ -292,6 +483,7 @@ def main() -> None:
     # count the generate path's batch only.
     k1_batches = ((BATCH, "generate"),
                   (1, "generate at batch 1, the interactive shape"),
+                  (2 * BATCH, "serve: the CFG teacher's [uncond; cond] queries at batch 32"),
                   (2 * TRAIN_BATCH, "train: the CFG teacher's [uncond; cond] queries"),
                   (TRAIN_BATCH, "train: target and student queries"),
                   (2 * VAL_BATCH, "validation: the CFG teacher's queries"),
@@ -476,6 +668,51 @@ def main() -> None:
                dft_bound_ms=bound(float(stft.stft_flops(b, n_frames, win, n_bins)),
                                   nbytes + 8.0 * cos_b.numel(), PEAK_FLOPS_3XTF32)[0])
         del wav, got, want, mutants
+    # K4 at N = 512: the evaluation frontend (hop 160, fmin 50) that the serve
+    # path's all_mels.npz runs once per generate batch of 32 (B = 1: one file
+    # of the eval harness). Its kernel is the 32 x 16 FFT; the faults are those
+    # of N = 1024, the window tail cut by 32 samples (the same share).
+    efront = stft.MelFrontend(EVAL_STFT, device=dev)
+    ewin, ehalf = EVAL_STFT.filter_length, EVAL_STFT.filter_length // 2
+    ecos, esin = efront.cos_basis, efront.sin_basis
+    ehann = torch.hann_window(ewin, periodic=True, device=dev)
+    for b, per_call in ((BATCH, 1), (1, 0)):
+        wav = (torch.randn(b, samples, device=dev, generator=gen) * 0.3).clamp(-1, 1)
+        kern = lambda: efront.magnitude(wav)
+        plain = lambda w=wav, c=ecos, s_=esin, pad=ehalf: stft.stft_magnitude(w, c, s_, hop, pad)
+        lib = lambda: torch.stft(wav, ewin, hop, ewin, ehann, center=True, pad_mode="reflect",
+                                 return_complex=True).abs().transpose(1, 2)
+        got, want = launch(stft.stft_magnitude_cuda, kern), plain()
+        lib_err = (lib() - want).abs().max().item()
+        if not lib_err <= 1e-4 * want.abs().max().item():
+            fail(f"torch.stft does not compute the 512-point magnitude: max abs diff {lib_err}")
+        frames = stft.frame_signal(stft.reflect_pad(wav, ehalf), ewin, hop)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            re, im = torch.matmul(frames, torch.cat([ecos, esin], 1)).split(ecos.shape[1], -1)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        rounded = lambda t: t.bfloat16().float()
+        tail = torch.ones(ewin, 1, device=dev)
+        tail[-32:] = 0
+        mutants = {
+            "single_bf16_pass": plain(w=rounded(wav), c=rounded(ecos), s_=rounded(esin)),
+            "single_tf32_pass": torch.sqrt(re * re + im * im),
+            "zero_padding": plain(w=F.pad(wav, (ehalf, ehalf)), pad=0),
+            "window_tail_dropped": plain(c=ecos * tail, s_=esin * tail),
+        }
+        n_frames, n_bins = want.shape[1:]
+        nbytes = 4.0 * (wav.numel() + want.numel())
+        device_ms, graph_error = graph_ms(kern)
+        record("stft_magnitude_n512", f"B={b} T={samples} N={ewin} frames={n_frames} "
+               f"bins={n_bins}", got, want, TOL_STFT, mutants,
+               cuda_ms(torch, kern, 20), cuda_ms(torch, plain, 3), cuda_ms(torch, lib, 20),
+               float(stft.stft_fft_flops(b, n_frames, ewin)), nbytes,
+               per_call, peak=PEAK_FLOPS_FP32, library_max_abs_diff=lib_err,
+               operations_rate="67 TFLOP/s FP32", device_ms=device_ms,
+               device_ms_error=graph_error, host_us=host_us(kern),
+               smem_bytes=stft.fft_smem_bytes(hop, ewin))
+        del wav, got, want, mutants, frames, re, im
     # K5: the standalone dilated conv at the vocoder's C = 64 level; nothing
     # dispatches it, so it has no launches on any path and its summed times
     # are those of the six convs run once each.
@@ -783,6 +1020,19 @@ def main() -> None:
         fail(f"train forward loss {got_loss} differs from the fp32 CPU reference {want_loss}")
     if not max(rel(got_pred, want_pred), rel(got_target, want_target)) <= ref_tol:
         fail("train forward predictions differ from the fp32 CPU reference")
+    del tpipe, state, train_step, validate, ref, batch, vbatch, mel_img, z0, noise8, text_cf, \
+        text_c, z_in, z_scaled
+    torch.cuda.empty_cache()
+
+    # -- serve: the test-set CLI at full width ------------------------------------
+    serve_dir = os.path.join(root, "outputs", f"chip_smoke_serve_{os.getpid()}")
+    os.makedirs(serve_dir)
+    try:
+        serve, serve_launches = serve_phase(torch, config, serve_dir, reset_counters,
+                                            read_counters, fused_levels, tok, dev)
+    finally:
+        shutil.rmtree(serve_dir, ignore_errors=True)
+    emit(serve)
 
     # -- summary ----------------------------------------------------------------
     sources = {
@@ -794,28 +1044,40 @@ def main() -> None:
                             "consistencytta_tpu/ops/pallas_mrf.py:508"),
         "stft_magnitude": ("consistencytta_torch/csrc/stft.cu",
                            "consistencytta_tpu/ops/pallas_stft.py:89"),
+        "stft_magnitude_n512": ("consistencytta_torch/csrc/stft.cu",
+                                "consistencytta_tpu/ops/pallas_stft.py:89"),
         "dilated_conv1d": ("consistencytta_torch/csrc/dilated_conv.cu",
                            "consistencytta_tpu/ops/pallas_blockconv.py:204"),
     }
     per = {
-        "stft_magnitude": f"times per train step at micro-batch {TRAIN_BATCH}",
+        "stft_magnitude": f"N = 1024: times per train step at micro-batch {TRAIN_BATCH}",
+        "stft_magnitude_n512": f"N = 512, the eval frontend: times per batch of {BATCH} "
+                               "clips' mels (all_mels.npz)",
         "dilated_conv1d": f"times of the six (k, d) convs at batch {BATCH}, C=64, L=81936, "
                           "once each; on no path, as in the JAX package",
     }
+    # K4's one counter counts both filter lengths: the train path runs only
+    # N = 1024, the serve path only N = 512, so each row takes its path's
+    runs = {"generate": f"the generate run's {calls} calls",
+            "train": f"the train run's {n_train_steps} steps and one validation",
+            "serve": "the serve run's two CLI runs"}
     kernels = []
     for name, (src, rep) in sources.items():
         r = results[name]
         b_ms, b_by = bound(r["flops"], r["bytes"], r["peak"])
+        counter = "stft_magnitude" if name.startswith("stft") else name
+        paths = {"generate": launches[counter], "train": train_launches[counter],
+                 "serve": serve_launches[counter]}
+        if counter == "stft_magnitude":
+            paths = {k: v for k, v in paths.items() if (k == "serve") == (name != counter)}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[name] + train_launches[name],
-            "launches_generate": launches[name], "launches_train": train_launches[name],
+            "launches": sum(paths.values()), **{f"launches_{k}": v for k, v in paths.items()},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": r["library_ms"],
             "per": per.get(name, f"times per generate call at batch {BATCH}")
-            + f"; launches over the generate run's {calls} calls and the train run's "
-              f"{n_train_steps} steps and one validation",
+            + "; launches over " + ", ".join(runs[k] for k in paths),
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -128,6 +128,37 @@ class UNetConfig(JsonConfig):
     guidance_embedding_type: str = "fourier"
     guided: bool = True
 
+    @classmethod
+    def from_diffusers_json(cls, path_or_dict) -> "UNetConfig":
+        """From a reference-format diffusers UNet config (a json path or its
+        dict), as the reference's --unet_model_config gives it."""
+        if isinstance(path_or_dict, dict):
+            d = path_or_dict
+        else:
+            with open(path_or_dict) as f:
+                d = json.load(f)
+        heads = d["attention_head_dim"]
+        return cls(
+            in_channels=d["in_channels"],
+            out_channels=d["out_channels"],
+            block_out_channels=tuple(d["block_out_channels"]),
+            down_block_types=tuple(d["down_block_types"]),
+            up_block_types=tuple(d["up_block_types"]),
+            layers_per_block=d.get("layers_per_block", 2),
+            attention_head_dim=tuple(heads) if isinstance(heads, (list, tuple))
+            else (heads,) * len(d["block_out_channels"]),
+            cross_attention_dim=d.get("cross_attention_dim", 1024),
+            norm_num_groups=d.get("norm_num_groups", 32),
+            norm_eps=d.get("norm_eps", 1e-5),
+            act_fn=d.get("act_fn", "silu"),
+            flip_sin_to_cos=d.get("flip_sin_to_cos", True),
+            freq_shift=d.get("freq_shift", 0),
+            use_linear_projection=d.get("use_linear_projection", False),
+            upcast_attention=d.get("upcast_attention", False),
+            downsample_padding=d.get("downsample_padding", 1),
+            mid_block_scale_factor=d.get("mid_block_scale_factor", 1.0),
+        )
+
     @property
     def num_levels(self) -> int:
         return len(self.block_out_channels)

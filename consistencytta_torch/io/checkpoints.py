@@ -1,0 +1,266 @@
+"""Reference-format torch checkpoints -> the port's modules.
+
+The port's modules keep the reference's state-dict key names and torch
+layouts, so loading a reference checkpoint is key surgery plus
+`load_state_dict`, with no conversion. The surgery is the port's own copy of
+the JAX package's (consistencytta_tpu/io/torch_import.py and
+cli/common.py:80-234), which follows the reference:
+
+  * the AudioLDM VAE checkpoint (`audioldm-s-full.ckpt`): keys under
+    `first_stage_model.`, its HiFi-GAN under `first_stage_model.vocoder.`;
+  * the full ConsistencyTTA model (`pytorch_model_2.bin`) with its legacy
+    role names (`consistency_unet` is the student, `consistency_ema_unet`
+    the target and, where no slow EMA is saved, the EMA,
+    `consistency_slow_ema_unet` the EMA, `diffusion_unet` the teacher);
+  * a TANGO checkpoint (`unet.*`, the teacher), with an optional stage-1
+    file whose `student_ema_unet.*` weights seed the student roles; TANGO
+    has no guidance weights, so the guided roles get the same fresh
+    guidance init as the JAX package (`init_guidance_params`);
+  * the FTVAE decoder pair and its EMA copy (stage 3).
+
+Orbax checkpoint directories (the JAX package's own training output, its
+LoRA form included) are refused: reading them without JAX is the training
+slice's work. The T5 encoder has no checkpoint here (the reference takes it
+from the Hugging Face hub, which the port never contacts): it keeps the
+pipeline's seeded init.
+
+`torch.load` unpickles: load only checkpoints you trust, as with the
+reference's own loader.
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from consistencytta_torch.configs import UNetConfig
+from consistencytta_torch.nn.vae import AutoencoderKLDecoder
+from consistencytta_torch.utils import cast_module
+
+StateDict = Dict[str, torch.Tensor]
+UNET_ROLES = ("teacher", "student", "student_target", "student_ema")
+STUDENT_ROLES = ("student", "student_target", "student_ema")
+
+
+def load_torch_state_dict(path: str) -> StateDict:
+    """A torch checkpoint's tensors on the CPU, descending into a
+    {"state_dict": ...} or {"model": ...} wrapper when the top level holds
+    no tensors."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    for wrapper in ("state_dict", "model"):
+        if (isinstance(sd, dict) and isinstance(sd.get(wrapper), dict)
+                and not any(torch.is_tensor(v) for v in sd.values())):
+            sd = sd[wrapper]
+            break
+    return {k: v for k, v in sd.items() if torch.is_tensor(v)}
+
+
+def strip_prefix(sd: Mapping[str, torch.Tensor], prefix: str) -> StateDict:
+    """The entries under `prefix`, with the prefix cut off; others dropped."""
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def split_consistencytta_checkpoint(sd: Mapping[str, torch.Tensor]) -> Dict[str, StateDict]:
+    """A full ConsistencyTTA state dict -> one UNet state dict per role,
+    after the legacy-name remapping of the reference
+    (models/audio_consistency_model.py:160-204)."""
+    remapped: StateDict = {}
+    for k, v in sd.items():
+        if "consistency_slow_ema_" in k:
+            remapped["student_ema_" + k.split("consistency_slow_ema_")[-1]] = v
+        elif "consistency_ema_" in k:
+            tail = k.split("consistency_ema_")[-1]
+            remapped.setdefault("student_target_" + tail, v)
+            remapped.setdefault("student_ema_" + tail, v)
+        elif "consistency_unet" in k:
+            remapped["student_unet" + k.split("consistency_unet")[-1]] = v
+        elif "diffusion_unet" in k:
+            remapped["teacher_unet" + k.split("diffusion_unet")[-1]] = v
+        else:
+            remapped.setdefault(k, v)
+    roles: Dict[str, StateDict] = {r: {} for r in UNET_ROLES}
+    for k, v in remapped.items():
+        for role in UNET_ROLES:
+            prefix = f"{role}_unet."
+            if k.startswith(prefix):
+                roles[role][k[len(prefix):]] = v
+                break
+    return roles
+
+
+def fan_out_tango_checkpoint(tango_sd: Mapping[str, torch.Tensor],
+                             stage1_sd: Optional[Mapping[str, torch.Tensor]] = None
+                             ) -> Dict[str, StateDict]:
+    """TANGO -> ConsistencyTTA initialisation (the reference's
+    models/audio_consistency_model.py:107-158): TANGO's `unet.*` is the
+    teacher; the student roles start from the stage-1 student EMA when given,
+    else from the teacher."""
+    teacher = strip_prefix(tango_sd, "unet.")
+    if stage1_sd is not None:
+        init = {k.split("student_ema_unet.")[-1]: v for k, v in stage1_sd.items()
+                if "student_ema_unet." in k}
+    else:
+        init = teacher
+    return {"teacher": teacher, **{role: dict(init) for role in STUDENT_ROLES}}
+
+
+def extract_ftvae_decoders(sd: Mapping[str, torch.Tensor]
+                           ) -> Tuple[Optional[StateDict], Optional[StateDict]]:
+    """The fine-tuned VAE decoder pair and its EMA copy in a stage-3 (FTVAE)
+    state dict (the reference's models/audio_consistency_model_ftvae.py:
+    69-91): `vae.decoder.*` / `vae.post_quant_conv.*` are the trained pair,
+    `ema_vae_decoder.*` / `ema_vae_pqconv.*` (or `vae.ema_decoder.*` /
+    `vae.ema_post_quant_conv.*`) the EMA pair; `loss.`-prefixed duplicates
+    count once. Each comes back rooted at decoder. / post_quant_conv., or None
+    where absent."""
+    trained: StateDict = {}
+    ema: StateDict = {}
+    alias_map = (
+        ("vae.ema_decoder.", "decoder.", ema),
+        ("vae.ema_post_quant_conv.", "post_quant_conv.", ema),
+        ("vae.decoder.", "decoder.", trained),
+        ("vae.post_quant_conv.", "post_quant_conv.", trained),
+        ("ema_vae_decoder.", "decoder.", ema),
+        ("ema_vae_pqconv.", "post_quant_conv.", ema),
+    )
+    for k, v in sd.items():
+        key = k[5:] if k.startswith("loss.") else k
+        for prefix, root, dest in alias_map:
+            if key.startswith(prefix):
+                dest.setdefault(root + key[len(prefix):], v)
+                break
+    return (trained or None), (ema or None)
+
+
+def init_guidance_params(config: UNetConfig, seed: int = 0) -> StateDict:
+    """Fresh guidance weights (the Fourier projection and its two-layer
+    MLP), the same numbers as the JAX package's init from
+    np.random.RandomState(seed), in torch layout: a TANGO checkpoint has no
+    guidance keys, and every student role gets this one init."""
+    rs = np.random.RandomState(seed)
+    ch = config.block_out_channels[0]
+    emb = ch * 4
+    proj = rs.standard_normal((ch * 2,)).astype(np.float32)
+    sd = {"guidance_proj.weight": torch.from_numpy(proj)}
+    for name in ("linear_1", "linear_2"):
+        kernel = (rs.standard_normal((emb, emb)) / np.sqrt(emb)).astype(np.float32)
+        sd[f"guidance_embedding.{name}.weight"] = torch.from_numpy(np.ascontiguousarray(kernel.T))
+        sd[f"guidance_embedding.{name}.bias"] = torch.zeros(emb)
+    return sd
+
+
+def is_orbax_checkpoint(path: Optional[str]) -> bool:
+    """A directory written by the JAX package's checkpoint writer
+    ({dir}/state, with frozen/ and config.json)."""
+    return bool(path) and os.path.isdir(path) and os.path.exists(os.path.join(path, "state"))
+
+
+def load_into(module: nn.Module, sd: Mapping[str, torch.Tensor], what: str,
+          prefixes: Optional[Tuple[str, ...]] = None) -> None:
+    """Copy the checkpoint's tensors into `module` (cast to its dtype and
+    device). Every key of the module (or of its `prefixes`) must be there
+    with its shape; keys the module does not have are ignored."""
+    keys = [k for k in module.state_dict() if prefixes is None or k.startswith(prefixes)]
+    missing = [k for k in keys if k not in sd]
+    if missing:
+        raise KeyError(f"{what}: {len(missing)} of {len(keys)} keys missing from the "
+                       f"checkpoint, e.g. {missing[:3]}")
+    module.load_state_dict({k: sd[k] for k in keys}, strict=prefixes is None)
+
+
+def _own_module(pipeline, role: str) -> nn.Module:
+    """The role's UNet, copied first if another role shares the module
+    (generation pipelines share one frozen student among the student roles),
+    so that loading one role leaves the others as they were."""
+    module = pipeline.unets[role]
+    if any(other is module for r, other in pipeline.unets.items() if r != role):
+        module = copy.deepcopy(module)
+        pipeline.unets[role] = module
+    return module
+
+
+def load_frozen_and_roles(pipeline, tango_model: Optional[str] = None,
+                          stage1_model: Optional[str] = None,
+                          model_path: Optional[str] = None,
+                          vae_checkpoint: Optional[str] = None,
+                          random_init_seed: Optional[int] = None) -> Dict[str, str]:
+    """Load reference-format checkpoints into `pipeline` in place, as the
+    JAX package's CLIs do (cli/common.py:80-234), and return what came from
+    which file.
+
+    `vae_checkpoint` gives the VAE and, where it holds one, the vocoder;
+    `model_path` a full ConsistencyTTA model (UNet roles, and an FTVAE
+    decoder pair where present); otherwise `tango_model` (+ `stage1_model`)
+    the TANGO fan-out. Only the UNet roles the pipeline holds are loaded.
+    `random_init_seed`: the seed the pipeline's random init came from, when
+    the caller lets that init stand for what no checkpoint holds; with None,
+    every UNet role of the pipeline, the VAE and the vocoder must come from a
+    checkpoint."""
+    for path in (model_path, stage1_model):
+        if is_orbax_checkpoint(path):
+            raise NotImplementedError(
+                f"{path} is an orbax checkpoint directory (the JAX package's training "
+                "output, LoRA included): the port does not read those yet; it reads "
+                "reference-format torch files")
+    if stage1_model and not tango_model:
+        raise ValueError("stage1_model seeds the student roles of a TANGO fan-out: "
+                         "pass tango_model with it")
+    cfg = pipeline.config
+    loaded: Dict[str, str] = {}
+    if vae_checkpoint:
+        sd = load_torch_state_dict(vae_checkpoint)
+        if any(k.startswith("first_stage_model.") for k in sd):
+            sd = strip_prefix(sd, "first_stage_model.")
+        voc = strip_prefix(sd, "vocoder.")
+        load_into(pipeline.vae, {k: v for k, v in sd.items() if not k.startswith("vocoder.")},
+                  "vae")
+        loaded["vae"] = vae_checkpoint
+        if voc:
+            load_into(pipeline.vocoder, voc, "vocoder")
+            loaded["vocoder"] = vae_checkpoint
+
+    roles, ft_trained, ft_ema, source = None, None, None, None
+    if model_path:
+        sd = load_torch_state_dict(model_path)
+        roles = split_consistencytta_checkpoint(sd)
+        ft_trained, ft_ema = extract_ftvae_decoders(sd)
+        source = model_path
+    elif tango_model:
+        stage1 = load_torch_state_dict(stage1_model) if stage1_model else None
+        roles = fan_out_tango_checkpoint(load_torch_state_dict(tango_model), stage1)
+        source = tango_model if stage1 is None else f"{tango_model} + {stage1_model}"
+    for role in list(pipeline.unets):
+        role_sd = roles.get(role) if roles else None
+        if not role_sd:
+            continue
+        if role != "teacher" and "guidance_proj.weight" not in role_sd:
+            role_sd = {**role_sd, **init_guidance_params(cfg.unet, seed=0)}
+        load_into(_own_module(pipeline, role), role_sd, role)
+        loaded[role] = source
+
+    # the FTVAE decoder pair goes over whichever base VAE is in place
+    if ft_trained is not None:
+        if "vae" not in loaded and random_init_seed is None:
+            raise ValueError("FTVAE decoder weights found but no base VAE loaded; pass "
+                             "vae_checkpoint")
+        load_into(pipeline.vae, ft_trained, "FTVAE decoder", ("decoder.", "post_quant_conv."))
+        loaded["vae decoder"] = model_path
+    if ft_ema is not None:
+        with torch.device(pipeline.device):
+            vae_ema = AutoencoderKLDecoder(cfg.vae)
+        cast_module(vae_ema, pipeline.dtype).eval().requires_grad_(False)
+        load_into(vae_ema, ft_ema, "FTVAE EMA decoder")
+        pipeline.vae_ema = vae_ema
+        loaded["vae_ema"] = model_path
+
+    if random_init_seed is None:
+        missing = [m for m in ("vae", "vocoder", *pipeline.unets) if m not in loaded]
+        if missing:
+            raise ValueError(f"no checkpoint holds {missing}; allow their seeded random "
+                             "init (random_init_seed, --random_init) or pass their files")
+    return loaded

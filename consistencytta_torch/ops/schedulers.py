@@ -2,8 +2,9 @@
 consistency sampling and training use. Heun/EDM: scale_model_input,
 add_noise, pred_x0, snr, the Euler step, one Heun interval (`heun_pair`)
 and the full sampling loop. DDPM (stage-1 training): add_noise and snr.
-DDIM: the tables, scale_model_input and add_noise (its solver step is not
-ported yet). Plus the min-SNR loss weights of both training stages.
+DDIM: the tables, scale_model_input, add_noise, snr and the deterministic
+(eta = 0) solver step that the teacher's and the guided student's DDIM
+samplers take. Plus the min-SNR loss weights of both training stages.
 
 Tables are built in numpy exactly as the JAX package builds them (float64
 interpolation, float32 storage); the per-sample ops run on torch tensors.
@@ -184,13 +185,17 @@ class HeunSchedule:
 
 @dataclass(frozen=True)
 class DDIMSchedule:
-    """DDIM inference schedule: integer timesteps descending."""
+    """DDIM inference schedule: integer timesteps descending,
+    (arange(n) * (N // n)).round()[::-1]; `final_alpha_cumprod` is
+    alphas_cumprod[0] (set_alpha_to_one=False), the alpha-bar a step whose
+    previous timestep falls below 0 lands on."""
 
     alphas_cumprod: np.ndarray
     timesteps: np.ndarray
     num_train_timesteps: int
     num_inference_steps: int
     prediction_type: str
+    final_alpha_cumprod: float
 
     @property
     def init_noise_sigma(self) -> float:
@@ -206,6 +211,33 @@ class DDIMSchedule:
         t = torch.as_tensor(t, device=x0.device).long()
         abar = _per_sample(table[t], x0)
         return torch.sqrt(abar) * x0 + torch.sqrt(1.0 - abar) * noise
+
+    def snr(self, t: torch.Tensor) -> torch.Tensor:
+        """abar / (1 - abar) at integer t [B]."""
+        abar = _lookup(self.alphas_cumprod, t)
+        return abar / (1.0 - abar)
+
+    def step(self, model_output: torch.Tensor, t, sample: torch.Tensor) -> torch.Tensor:
+        """Deterministic (eta = 0) DDIM step from integer t [B] to
+        t - N // n: x0 and eps from the model output (v or epsilon), then
+        sqrt(abar_prev) x0 + sqrt(1 - abar_prev) eps, with abar_prev the
+        final alpha-bar where t - N // n < 0."""
+        t = torch.as_tensor(t, device=sample.device).reshape(-1).long()
+        prev_t = t - self.num_train_timesteps // self.num_inference_steps
+        table = torch.as_tensor(self.alphas_cumprod, device=sample.device)
+        abar_t = _per_sample(table[t], sample)
+        final = torch.full_like(table[t], self.final_alpha_cumprod)
+        abar_prev = _per_sample(
+            torch.where(prev_t >= 0, table[prev_t.clamp_min(0)], final), sample)
+        if self.prediction_type == "v_prediction":
+            x0 = torch.sqrt(abar_t) * sample - torch.sqrt(1.0 - abar_t) * model_output
+            eps = torch.sqrt(abar_t) * model_output + torch.sqrt(1.0 - abar_t) * sample
+        elif self.prediction_type == "epsilon":
+            x0 = (sample - torch.sqrt(1.0 - abar_t) * model_output) / torch.sqrt(abar_t)
+            eps = model_output
+        else:
+            raise ValueError(f"unsupported prediction type {self.prediction_type}")
+        return torch.sqrt(abar_prev) * x0 + torch.sqrt(1.0 - abar_prev) * eps
 
 
 def make_heun_schedule(
@@ -246,6 +278,7 @@ def make_ddim_schedule(config: SchedulerConfig, num_inference_steps: int) -> DDI
         num_train_timesteps=config.num_train_timesteps,
         num_inference_steps=num_inference_steps,
         prediction_type=config.prediction_type,
+        final_alpha_cumprod=float(abar[0]),
     )
 
 

@@ -1,14 +1,16 @@
 """STFT-as-matmul mel frontend: kernel K4 with its plain version.
 
 The training mel spectrogram is a framed real DFT (window 1024, hop 160,
-reflect padding of half a window) against a precomputed windowed basis, then
+reflect padding of half a window; the evaluation frontend's window is 512)
+against a precomputed windowed basis, then
 a mel filterbank product and a log compression with a 1e-5 floor
 (TacotronSTFT). `stft_magnitude` is the plain version: unfold, one float32
 matrix product, magnitude. `stft_magnitude_cuda` (K4) launches
 `csrc/stft.cu`, which never materialises the frames and computes the same
-function as a float32 FFT in shared memory: the windowed basis is exactly the
-window times the DFT, so the kernel takes the window and a float32 table of
-twiddles built once in float64 (`fft_twiddles`). It has no gradient, as
+function as a float32 FFT in shared memory, for a filter of 512 or 1024
+samples: the windowed basis is exactly the window times the DFT, so the
+kernel takes the window and a float32 table of twiddles built once in
+float64 for its length (`fft_twiddles`). It has no gradient, as
 the JAX package's kernel has none, so differentiable callers use the plain
 functions (`frame_signal` is `Tensor.unfold`, whose autograd backward is the
 overlap-add). `MelFrontend.magnitude` launches the kernel for a CUDA tensor
@@ -29,9 +31,9 @@ from consistencytta_torch.ops.mel import hann_window, mel_filterbank, pad_center
 from consistencytta_torch.utils import resolve_device
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
-FFT_LENGTH = 1024  # the kernel's filter length: a 32 x 32 four-step FFT
+FFT_LENGTHS = (512, 1024)  # the kernel's filter lengths: 32 x 16 and 32 x 32 four-step FFTs
 FFT_RADIX = 32
-TILE_FRAMES = 32  # frames per block (FPB in csrc/stft.cu)
+TILE_FRAMES = {512: 64, 1024: 32}  # frames per block (Plan<N>::FPB in csrc/stft.cu)
 EXCHANGE_BYTES = (8 * 32 * 33 + 16) * 8  # per-warp transpose buffers and W_32
 
 
@@ -95,31 +97,32 @@ def stft_power(wav, cos_basis, sin_basis, hop_length: int, center_pad: int):
     return re * re + im * im
 
 
-def fft_twiddles() -> np.ndarray:
-    """The kernel's twiddle table, [R * R + R / 2, 2] float32 (re, im) with
-    R = 32 and N = 1024: W_N^(n1 k2) at row k2 * R + n1, then W_R^e for
-    e < R / 2, where W_M = exp(-2 pi i / M). Built in float64 and rounded
-    once to float32."""
-    r = FFT_RADIX
-    k2, n1 = np.meshgrid(np.arange(r), np.arange(r), indexing="ij")
-    ang = np.concatenate([(n1 * k2).reshape(-1) / FFT_LENGTH, np.arange(r // 2) / r])
+def fft_twiddles(length: int = 1024) -> np.ndarray:
+    """The kernel's twiddle table for an N = `length` point FFT (32 x Q,
+    Q = N / 32), [Q * R + R / 2, 2] float32 (re, im) with R = 32: W_N^(n1 k2)
+    at row k2 * R + n1 (k2 < Q, n1 < R), then W_R^e for e < R / 2, where
+    W_M = exp(-2 pi i / M). Built in float64 and rounded once to float32."""
+    r, q = FFT_RADIX, length // FFT_RADIX
+    k2, n1 = np.meshgrid(np.arange(q), np.arange(r), indexing="ij")
+    ang = np.concatenate([(n1 * k2).reshape(-1) / length, np.arange(r // 2) / r])
     w = np.exp(-2j * np.pi * ang)
     return np.stack([w.real, w.imag], axis=1).astype(np.float32)
 
 
-_TWIDDLES: Dict[torch.device, torch.Tensor] = {}
+_TWIDDLES: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
-def _twiddles_on(device: torch.device) -> torch.Tensor:
-    if device not in _TWIDDLES:
-        _TWIDDLES[device] = torch.from_numpy(fft_twiddles()).to(device)
-    return _TWIDDLES[device]
+def _twiddles_on(device: torch.device, length: int) -> torch.Tensor:
+    key = (device, length)
+    if key not in _TWIDDLES:
+        _TWIDDLES[key] = torch.from_numpy(fft_twiddles(length)).to(device)
+    return _TWIDDLES[key]
 
 
-def fft_smem_bytes(hop_length: int) -> int:
+def fft_smem_bytes(hop_length: int, length: int = 1024) -> int:
     """Shared memory of one K4 block (mirrors smem_bytes in csrc/stft.cu):
-    the transpose buffers, the window and the span of TILE_FRAMES frames."""
-    return EXCHANGE_BYTES + (2 * FFT_LENGTH + (TILE_FRAMES - 1) * hop_length) * 4
+    the transpose buffers, the window and the span of the block's frames."""
+    return EXCHANGE_BYTES + (2 * length + (TILE_FRAMES[length] - 1) * hop_length) * 4
 
 
 def stft_magnitude_cuda(wav, cos_basis, sin_basis, hop_length: int, center_pad: int,
@@ -143,10 +146,10 @@ def stft_magnitude_cuda(wav, cos_basis, sin_basis, hop_length: int, center_pad: 
             raise TypeError(f"stft_magnitude_cuda: {name} must be contiguous float32 on wav's device")
     if wav.ndim != 2 or tuple(sin_basis.shape) != (length, n_bins):
         raise ValueError("stft_magnitude_cuda: wav [B, T], bases [L, n_bins] expected")
-    if length != FFT_LENGTH or n_bins != length // 2 + 1:
+    if length not in FFT_LENGTHS or n_bins != length // 2 + 1:
         raise ValueError(
-            f"stft_magnitude_cuda: the FFT kernel takes a filter of {FFT_LENGTH} samples "
-            f"and its {FFT_LENGTH // 2 + 1} bins, got {length} and {n_bins}"
+            "stft_magnitude_cuda: the FFT kernel takes a filter of 512 or 1024 samples "
+            f"and its N / 2 + 1 bins, got {length} and {n_bins}"
         )
     if window.ndim != 1 or window.shape[0] != length:
         raise ValueError(
@@ -160,10 +163,11 @@ def stft_magnitude_cuda(wav, cos_basis, sin_basis, hop_length: int, center_pad: 
         )
     if t + 2 * center_pad < length:
         raise ValueError("stft_magnitude_cuda: the padded signal holds no frame")
-    if hop_length < 1 or fft_smem_bytes(hop_length) > SMEM_LIMIT:
+    if hop_length < 1 or fft_smem_bytes(hop_length, length) > SMEM_LIMIT:
         raise ValueError(
-            f"stft_magnitude_cuda: a block's {TILE_FRAMES} frames at hop {hop_length} "
-            f"need {fft_smem_bytes(max(hop_length, 0))} bytes of shared memory"
+            f"stft_magnitude_cuda: a block's {TILE_FRAMES[length]} frames at hop "
+            f"{hop_length} need {fft_smem_bytes(max(hop_length, 0), length)} bytes of "
+            "shared memory"
         )
     n_frames = (t + 2 * center_pad - length) // hop_length + 1
     out = torch.empty((b, n_frames, n_bins), dtype=torch.float32, device=wav.device)
@@ -171,7 +175,7 @@ def stft_magnitude_cuda(wav, cos_basis, sin_basis, hop_length: int, center_pad: 
     fn.restype = ctypes.c_int
     code = fn(
         ctypes.c_void_p(wav.data_ptr()), ctypes.c_void_p(window.data_ptr()),
-        ctypes.c_void_p(_twiddles_on(wav.device).data_ptr()),
+        ctypes.c_void_p(_twiddles_on(wav.device, length).data_ptr()),
         ctypes.c_void_p(out.data_ptr()),
         ctypes.c_int(b), ctypes.c_int(t), ctypes.c_int(length), ctypes.c_int(hop_length),
         ctypes.c_int(center_pad), ctypes.c_int(n_frames),

@@ -1,14 +1,18 @@
 """Prompt tokenization for the frozen text encoder.
 
-`HashTokenizer` is a deterministic, dependency-free stand-in that hashes
-whitespace tokens into the T5 vocab range; it is not lexically compatible
-with sentencepiece and exists so runs without tokenizer files work. It
-pads to a fixed length, like the HF tokenizer with padding="max_length".
+`HFTokenizer` wraps a Hugging Face sentencepiece tokenizer whose files are
+on disk (a local path, or a name already in the local cache: the port never
+downloads). `HashTokenizer` is a deterministic, dependency-free stand-in
+that hashes whitespace tokens into the T5 vocab range; it is not lexically
+compatible with sentencepiece and exists so runs without tokenizer files
+work. `load_tokenizer` takes the first when it resolves, else the second.
+Both pad to a fixed length (padding="max_length").
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -39,6 +43,52 @@ class HashTokenizer:
             ids[i, : len(toks)] = toks
             mask[i, : len(toks)] = 1
         return ids, mask
+
+
+class HFTokenizer:
+    """A Hugging Face tokenizer from local files, with fixed-length padding
+    and truncation; ids and mask as int32 numpy arrays."""
+
+    def __init__(self, name_or_path: str = "google/flan-t5-large"):
+        from transformers import AutoTokenizer
+
+        self.tok = AutoTokenizer.from_pretrained(name_or_path, local_files_only=True)
+        self.model_max_length = self.tok.model_max_length
+
+    def __call__(
+        self, prompts: Sequence[str], max_length: int, padding: str = "max_length"
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        batch = self.tok(list(prompts), max_length=max_length, padding="max_length",
+                         truncation=True, return_tensors="np")
+        return batch["input_ids"].astype(np.int32), batch["attention_mask"].astype(np.int32)
+
+
+def _tokenizer_files_present(name_or_path: str) -> bool:
+    """A local directory, or a hub name whose tokenizer config is in the
+    local cache. Looked up before `transformers` is imported: importing it
+    only to find no files costs seconds (8 to 28 s on an H100 host)."""
+    if os.path.isdir(name_or_path):
+        return True
+    try:
+        from huggingface_hub import try_to_load_from_cache
+    except ImportError:
+        return False
+    try:
+        return isinstance(try_to_load_from_cache(name_or_path, "tokenizer_config.json"), str)
+    except ValueError:  # not a valid hub name
+        return False
+
+
+def load_tokenizer(name_or_path: str = "google/flan-t5-large", vocab_size: int = 32128):
+    """`HFTokenizer` when the tokenizer's files are local and `transformers`
+    is installed, else `HashTokenizer(vocab_size)` (its ids stay inside the
+    model's embedding table)."""
+    if _tokenizer_files_present(name_or_path):
+        try:
+            return HFTokenizer(name_or_path)
+        except (ImportError, OSError, ValueError):
+            pass
+    return HashTokenizer(vocab_size=vocab_size)
 
 
 def tokenize_with_uncond(

@@ -13,9 +13,10 @@ and the relative L2 error at most 1e-2. bf16 rounding alone moves these
 outputs by about 0.5% on both measures; a wrong softmax scale or a dropped
 key tile moves them by 9% or more.
 
-The STFT magnitude is float32 in and out and is held to float32 grade: the
-largest error at most 1e-5 of the output's largest magnitude (a float32 FFT
-and a float32 product of 1024 terms differ by about 1e-6 of it), which a
+The STFT magnitude (filters of 1024 and 512 samples) is float32 in and out
+and is held to float32 grade: the largest error at most 1e-5 of the output's
+largest magnitude (a float32 FFT and a float32 product of 1024 terms differ
+by about 1e-6 of it), which a
 single bf16 or TF32 pass (1e-3 to 1e-4 of it), zero padding or a dropped
 window tail all fail.
 """
@@ -62,6 +63,24 @@ def test_flash_mha_packed(gen, b, h, s):
     torch.cuda.synchronize()
     assert ops.flash_mha_packed.launches == before + 1
     assert_close_rel(got, ops.flash_mha_packed_plain(q, k, v, h, 51 ** -0.5), 2e-2)
+
+
+@pytest.mark.parametrize("s,h", [(4096, 5), (1024, 10), (256, 20), (64, 20)])
+def test_flash_mha_packed_at_batch_64(gen, s, h):
+    """The CFG teacher's shapes at a generate batch of 32: the stacked
+    [uncond; cond] batch of 64 (grid and tensor maps sized by B x H). The
+    plain version runs in chunks of 8 rows to bound its [S, S] logits."""
+    b = 64
+    qkv = torch.randn(b, s, 3 * h * 64, device="cuda", generator=gen).bfloat16()
+    q, k, v = qkv.split(h * 64, dim=-1)
+    before = ops.flash_mha_packed.launches
+    got = ops.flash_mha_packed(q, k, v, h, 51 ** -0.5)
+    torch.cuda.synchronize()
+    assert ops.flash_mha_packed.launches == before + 1
+    want = torch.cat([ops.flash_mha_packed_plain(q[i:i + 8], k[i:i + 8], v[i:i + 8], h, 51 ** -0.5)
+                      for i in range(0, b, 8)])
+    assert_close_rel(got, want, 2e-2)
+    assert_close_rel(got[32:], ops.flash_mha_packed(q[32:], k[32:], v[32:], h, 51 ** -0.5), 2e-2)
 
 
 @pytest.mark.parametrize("b,h,s", [(8, 10, 1024), (2, 5, 333)])
@@ -271,6 +290,52 @@ def test_stft_tolerance_rejects_planted_faults(gen):
         assert not _stft_close(bad, want), name
 
 
+EVAL_STFT = STFTConfig(filter_length=512, hop_length=160, win_length=512, mel_fmin=50.0)
+
+
+@pytest.mark.parametrize("t", [257, 32007, 160000])
+@pytest.mark.parametrize("b", [1, 3, 32])
+def test_stft_magnitude_512(gen, b, t):
+    """The evaluation frontend's 512-point filter (32 x 16 FFT, two frame
+    pairs a warp): 257 bins; 1, 3 and 32 rows, a clip a little longer than
+    half a filter, a ragged length and 10 s."""
+    fe = stft.MelFrontend(EVAL_STFT, device="cuda")
+    wav = torch.randn(b, t, device="cuda", generator=gen) * 0.3
+    before = stft.stft_magnitude_cuda.launches
+    got = fe.magnitude(wav)
+    torch.cuda.synchronize()
+    assert stft.stft_magnitude_cuda.launches == before + 1
+    want = stft.stft_magnitude(wav, fe.cos_basis, fe.sin_basis, 160, 256)
+    assert got.shape == want.shape == (b, t // 160 + 1, 257)
+    assert _stft_close(got, want)
+
+
+def test_stft_512_tolerance_rejects_planted_faults(gen):
+    fe = stft.MelFrontend(EVAL_STFT, device="cuda")
+    wav = torch.randn(2, 32000, device="cuda", generator=gen) * 0.3
+    cos_b, sin_b = fe.cos_basis, fe.sin_basis
+    want = stft.stft_magnitude(wav, cos_b, sin_b, 160, 256)
+    assert _stft_close(fe.magnitude(wav), want)
+    rounded = lambda t: t.bfloat16().float()
+    tail = torch.ones(512, 1, device="cuda")
+    tail[-32:] = 0
+    frames = stft.frame_signal(stft.reflect_pad(wav, 256), 512, 160)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        re, im = torch.matmul(frames, torch.cat([cos_b, sin_b], 1)).split(257, -1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    faults = {
+        "single_bf16_pass": stft.stft_magnitude(rounded(wav), rounded(cos_b), rounded(sin_b), 160, 256),
+        "single_tf32_pass": torch.sqrt(re * re + im * im),
+        "zero_padding": stft.stft_magnitude(torch.nn.functional.pad(wav, (256, 256)), cos_b,
+                                            sin_b, 160, 0),
+        "window_tail_dropped": stft.stft_magnitude(wav, cos_b * tail, sin_b * tail, 160, 256),
+    }
+    for name, bad in faults.items():
+        assert not _stft_close(bad, want), name
+
+
 def test_stft_kernel_refuses_what_it_does_not_take(gen):
     fe = stft.MelFrontend(STFTConfig(), device="cuda")
     with pytest.raises(ValueError, match="reflect"):
@@ -280,9 +345,9 @@ def test_stft_kernel_refuses_what_it_does_not_take(gen):
     with pytest.raises(TypeError):
         fe.magnitude(torch.zeros(1, 4000, device="cuda", dtype=torch.float64))
     wav = torch.zeros(1, 4000, device="cuda")
-    small = stft.MelFrontend(STFTConfig(filter_length=512, win_length=512), device="cuda")
-    with pytest.raises(ValueError, match="filter of 1024"):  # not the kernel's 32 x 32
-        small.magnitude(wav)
+    other = stft.MelFrontend(STFTConfig(filter_length=768, win_length=768), device="cuda")
+    with pytest.raises(ValueError, match="filter of 512 or 1024"):  # neither 32 x 16 nor 32 x 32
+        other.magnitude(wav)
     with pytest.raises(ValueError, match="window"):  # longer than the filter
         stft.stft_magnitude_cuda(wav, fe.cos_basis, fe.sin_basis, 160, 512,
                                  torch.ones(2048, device="cuda"))

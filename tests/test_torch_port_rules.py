@@ -34,7 +34,10 @@ def test_port_imports_no_jax():
     assert len(files) > 10 and os.path.exists(files[0])
     names = {os.path.relpath(f, REPO) for f in files}
     for new in ("ops/stft.py", "ops/mel.py", "ops/dilated_conv.py", "training/step.py",
-                "training/optim.py", "training/ema.py", "training/losses.py"):
+                "training/optim.py", "training/ema.py", "training/losses.py",
+                "ops/resample.py", "io/audio.py", "io/checkpoints.py", "evaluation/mels.py",
+                "training/data.py", "cli/common.py", "cli/inference.py", "cli/demo.py",
+                "easy.py"):
         assert os.path.join("consistencytta_torch", new) in names
     bad = {}
     for path in files:
@@ -55,6 +58,8 @@ def test_port_imports_no_jax():
 def test_cuda_request_without_card_raises(monkeypatch):
     from consistencytta_torch.configs import PipelineConfig
     from consistencytta_torch.models.pipeline import Pipeline
+    from consistencytta_torch.cli import inference
+    from consistencytta_torch.evaluation.mels import eval_mel_frontend
     from consistencytta_torch.ops.stft import MelFrontend
     from consistencytta_torch.utils import resolve_device
 
@@ -65,6 +70,10 @@ def test_cuda_request_without_card_raises(monkeypatch):
         Pipeline.create(PipelineConfig.tiny(), device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         MelFrontend()
+    with pytest.raises(RuntimeError, match="cuda"):
+        eval_mel_frontend()
+    with pytest.raises(RuntimeError, match="cuda"):
+        inference.main(["--pipeline_config", "tiny", "--random_init", "--skip_eval"])
     assert MelFrontend(device="cpu").cos_basis.device.type == "cpu"
     assert resolve_device("cpu").type == "cpu"
 

@@ -282,18 +282,19 @@ def test_fft_kernel_algorithm_is_the_dft(frontends, samples):
 
 def test_kernel_wrapper_refuses_what_it_does_not_take(frontends):
     """These checks come before the kernel is built, so they run without a
-    card: no gradient, float32 only, the 1024-point filter with its 513 bins,
-    a window padded to the filter, a span of frames that fits a block."""
+    card: no gradient, float32 only, a 512- or 1024-point filter with its
+    N / 2 + 1 bins, a window padded to the filter, a span of frames that
+    fits a block."""
     _, tf = frontends
     wav = torch.zeros(1, 4000)
     with pytest.raises(RuntimeError, match="no gradient"):
         stft.stft_magnitude_cuda(wav.clone().requires_grad_(), tf.cos_basis, tf.sin_basis, 160, 512)
     with pytest.raises(TypeError):
         stft.stft_magnitude_cuda(wav.double(), tf.cos_basis, tf.sin_basis, 160, 512)
-    cos_512, sin_512 = (torch.from_numpy(b) for b in mel.real_dft_basis(512, 512))
-    with pytest.raises(ValueError, match="filter of 1024"):
-        stft.stft_magnitude_cuda(wav, cos_512, sin_512, 160, 256)
-    with pytest.raises(ValueError, match="filter of 1024"):
+    cos_768, sin_768 = (torch.from_numpy(b) for b in mel.real_dft_basis(768, 768))
+    with pytest.raises(ValueError, match="filter of 512 or 1024"):
+        stft.stft_magnitude_cuda(wav, cos_768, sin_768, 160, 384)
+    with pytest.raises(ValueError, match="filter of 512 or 1024"):
         stft.stft_magnitude_cuda(wav, tf.cos_basis[:, :400].contiguous(),
                                  tf.sin_basis[:, :400].contiguous(), 160, 512)
     with pytest.raises(ValueError, match="window"):
