@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `consistencytta_torch/csrc/` (one nvcc per
-source, in parallel, into `build/`), then runs six phases, each printing
+source, in parallel, into `build/`), then runs seven phases, each printing
 JSON lines:
 
   env      card name and power limit (nvidia-smi), torch / CUDA versions,
@@ -64,13 +64,32 @@ JSON lines:
            its vocoder) of seeded random bf16 weights, written under
            outputs/ and deleted at the end: a 32-row manifest at batch 32
            with the 18-step Heun CFG teacher (--use_edm --use_ema
-           --query_teacher), then --stage 1 with 20 DDIM steps; the wavs
+           --query_teacher), then --stage 1 with 20 DDIM steps, evaluated
+           against the teacher's files through --test_references (the
+           eval phase's backbones under ckpt/ in its working directory,
+           all_mels.npz as mel_path); the wavs
            (int16, 16 kHz, 10 s, not silent), all_mels.npz ([32, 1001, 64]
            in [0, 1]) and the summary.jsonl line; the launch counters against
            the counts the code implies; every tensor the loader fills equal
            to the saved one; a 2-step teacher and a 2-step guided student at
            batch 1 against the same weights in fp32 on the CPU; the seconds
            of each part and the peak memory;
+  eval     the evaluation harness at the backbones' published widths (Cnn14,
+           VGGish, CLAP HTSAT-base + RoBERTa-base; seeded random weights
+           written as the reference's three checkpoint files under the serve
+           phase's directory): the serve phase's 32 student wavs against its
+           32 teacher wavs through the port's evaluate_existing, with the K4
+           launches against the count the code implies; every metric present
+           and finite except the CLAP scores, which are NaN where no RoBERTa
+           tokenizer files are (as in the JAX harness), for this run and the
+           serve phase's evaluating CLI run; the CLAP towers through a
+           stand-in tokenizer; each backbone's embeddings of 4 clips (the
+           text tower's of 4 captions) against fp32 on the CPU, whole and
+           after removing the across-set mean, each within its own limit
+           (TOL_EVAL; the convolutions run in TF32, PyTorch's default), with
+           the set's embeddings apart and a bf16 control over the limit; the
+           seconds of each part (FD's sqrtm on its own), clips/s and peak
+           memory;
   kernels  one line naming every kernel with its launches, error and times.
 
 Then the nvidia-smi line, then the last line
@@ -181,6 +200,7 @@ def serve_phase(torch, config, serve_dir, reset_counters, read_counters, fused_l
     from consistencytta_torch.io import checkpoints
     from consistencytta_torch.models.pipeline import STUDENT_ROLES, Pipeline
     from consistencytta_torch.text.tokenizer import tokenize_with_uncond
+    from consistencytta_torch.tools.random_eval_checkpoints import write_eval_checkpoints
 
     torch.cuda.reset_peak_memory_stats()
     roles = STUDENT_ROLES + ("teacher",)
@@ -204,13 +224,13 @@ def serve_phase(torch, config, serve_dir, reset_counters, read_counters, fused_l
     checkpoint_gb = (os.path.getsize(model_path) + os.path.getsize(vae_path)) / 1e9
     names = [f"audiocaps_{i:02d}.wav" for i in range(BATCH)]
     manifest = os.path.join(serve_dir, "test.jsonl")
+    captions = {}
     with open(manifest, "w") as f:
         for i, name in enumerate(names):
-            caption = PROMPTS[i % len(PROMPTS)] + SERVE_PLACES[i // len(PROMPTS) % 4]
-            f.write(json.dumps({"captions": caption, "location": f"clips/{name}"}) + "\n")
+            captions[name] = PROMPTS[i % len(PROMPTS)] + SERVE_PLACES[i // len(PROMPTS) % 4]
+            f.write(json.dumps({"captions": captions[name], "location": f"clips/{name}"}) + "\n")
     common = ["--model", model_path, "--vae_checkpoint", vae_path, "--test_file", manifest,
-              "--batch_size", str(BATCH), "--use_bf16", "--skip_eval",
-              "--text_len", str(TEXT_LEN)]
+              "--batch_size", str(BATCH), "--use_bf16", "--text_len", str(TEXT_LEN)]
 
     def run(argv, expected):
         reset_counters()
@@ -242,7 +262,8 @@ def serve_phase(torch, config, serve_dir, reset_counters, read_counters, fused_l
     expected = {"flash_mha_packed": 16 * queries, "flash_self_attention": 2,
                 "fused_mrf_level": 2 * fused_levels, "stft_magnitude": 1, "dilated_conv1d": 0}
     res2, wall2, counts2 = run(["--use_edm", "--use_ema", "--query_teacher", "--num_teacher_steps",
-                                str(SERVE_TEACHER_STEPS), "--output_dir", out], expected)
+                                str(SERVE_TEACHER_STEPS), "--skip_eval", "--output_dir", out],
+                               expected)
     check_wavs(out)
     check_wavs(out + "_teacher")
     mels = np.load(os.path.join(out, "all_mels.npz"))
@@ -256,12 +277,26 @@ def serve_phase(torch, config, serve_dir, reset_counters, read_counters, fused_l
     if len(lines) != 1 or json.loads(lines[0])["num_clips"] != BATCH:
         fail(f"serve: summary.jsonl holds {len(lines)} lines")
 
-    # stage 1: the guided student, DDIM, no teacher
+    # stage 1: the guided student, DDIM, no teacher, evaluated against the
+    # teacher's files (--test_references, no --skip_eval) with the backbones
+    # that the CLI looks for under ckpt/ in the working directory: seeded
+    # random weights at the published widths. Its K4 launches: the batch's
+    # mels, and the references' mels (32 files of one length, one launch);
+    # the generated mels come from all_mels.npz.
+    t0 = time.perf_counter()
+    eval_ckpt = write_eval_checkpoints(os.path.join(serve_dir, "ckpt"), seed=EVAL_SEED)
+    eval_ckpt_s = time.perf_counter() - t0
     out1 = os.path.join(serve_dir, "stage1")
     expected1 = {"flash_mha_packed": 16 * SERVE_STAGE1_STEPS, "flash_self_attention": 1,
-                 "fused_mrf_level": fused_levels, "stft_magnitude": 1, "dilated_conv1d": 0}
-    res1, wall1, counts1 = run(["--stage", "1", "--num_steps", str(SERVE_STAGE1_STEPS),
-                                "--output_dir", out1], expected1)
+                 "fused_mrf_level": fused_levels, "stft_magnitude": 2, "dilated_conv1d": 0}
+    cwd = os.getcwd()
+    os.chdir(serve_dir)
+    try:
+        res1, wall1, counts1 = run(["--stage", "1", "--num_steps", str(SERVE_STAGE1_STEPS),
+                                    "--test_references", out + "_teacher", "--output_dir", out1],
+                                   expected1)
+    finally:
+        os.chdir(cwd)
     check_wavs(out1)
     launches = {k: counts2[k] + counts1[k] for k in counts2}
 
@@ -326,7 +361,292 @@ def serve_phase(torch, config, serve_dir, reset_counters, read_counters, fused_l
     if bad:
         emit(line)
         fail(f"serve: samplers differ from the fp32 CPU reference: {bad}")
-    return line, launches
+    context = {"names": names, "captions": captions, "gen_dir": out, "ref_dir": out + "_teacher", "stage1_dir": out1,
+               "stage1": res1, "checkpoints": eval_ckpt, "checkpoint_write_seconds": eval_ckpt_s}
+    return line, launches, context
+
+
+EVAL_SEED = 3  # the random backbone checkpoints
+# Backbone embeddings on the card against the same weights in float32 on the
+# CPU, on a set of 4 clips (2 of the serve run, 2 seeded tones): the larger of
+# the relative L2 and the relative L2 after removing the across-set mean (the
+# input's part of the embeddings). Each limit is near the geometric mean of
+# the sound reading and a bf16 control's (the backbone under bf16 autocast),
+# both read on an H100 80GB HBM3 at 700 W (PERF.md): 1.7e-3 / 2.2e-2 (Cnn14
+# embedding; cuDNN's TF32 convs make all of the sound reading), 1.7e-3 /
+# 2.6e-2 (logits), 1.4e-3 / 1.6e-2 (VGGish), 6.3e-6 / 0.90 (CLAP audio),
+# 6.9e-6 / 3.3e-2 (CLAP text). The control must exceed its limit.
+TOL_EVAL = {"cnn14_embedding": 6e-3, "cnn14_logits": 6e-3, "vggish": 4e-3,
+            "clap_audio": 2e-3, "clap_text": 4e-4}
+EVAL_MIN_SPREAD = 0.05  # the set's embeddings must lie apart (see _agreement)
+
+
+def _rel_l2(got, want) -> float:
+    import numpy as np
+
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _agreement(card, host) -> dict:
+    """A set's embeddings on the card against the CPU's: the relative L2,
+    the same after removing the across-set mean, and the CPU set's spread
+    (its norm after removing that mean over its norm). An embedding that
+    is mostly one vector for every input shows a small relative L2 whatever
+    its input-dependent part does; the centred reading holds that part."""
+    import numpy as np
+
+    card, host = np.asarray(card, np.float64), np.asarray(host, np.float64)
+    centred = lambda e: e - e.mean(axis=0)
+    return {"rel_l2": _rel_l2(card, host),
+            "centred_rel_l2": _rel_l2(centred(card), centred(host)),
+            "spread": float(np.linalg.norm(centred(host)) / np.linalg.norm(host))}
+
+
+def _agreement_err(reading: dict) -> float:
+    return max(reading["rel_l2"], reading["centred_rel_l2"])
+
+
+def eval_agreement(torch, ckpt, clap, standin, gen_path, ref_path, caps):
+    """Each backbone's embeddings of 4 clips (a generated and a reference
+    file of the serve run, and 2 seeded tones with noise written beside
+    them) and the text tower's of `caps`, on the card in float32 (cuDNN
+    TF32 on, PyTorch's default), with TF32 off, under bf16 autocast (the
+    control), and with the same weights in float32 on the CPU. Returns the
+    clips, the captions and the readings (_agreement) by backbone."""
+    import numpy as np
+
+    from consistencytta_torch.evaluation import panns, vggish
+    from consistencytta_torch.evaluation.clap_model import CLAPWrapper, load_clap_towers
+    from consistencytta_torch.evaluation.mels import load_wav_16k
+    from consistencytta_torch.io.audio import write_wav
+
+    rng = np.random.default_rng(EVAL_SEED)
+    t = np.arange(160000) / 16000
+    tones = []
+    for i, f0 in enumerate((220.0, 1661.2)):
+        tones.append(os.path.join(os.path.dirname(os.path.dirname(gen_path)), f"tone_{i}.wav"))
+        write_wav(tones[-1], (0.25 * np.sin(2 * np.pi * f0 * t) + 0.1 * np.sin(
+            4 * np.pi * f0 * t) + 0.05 * rng.standard_normal(t.size)).astype(np.float32))
+    few = [gen_path, ref_path, *tones]
+
+    class Bf16(torch.nn.Module):
+        """A CLAP tower under bf16 autocast, giving float32 (the control)."""
+
+        def __init__(self, tower):
+            super().__init__()
+            self.tower, self.config = tower, getattr(tower, "config", None)
+
+        def forward(self, *args):
+            with torch.autocast("cuda", torch.bfloat16):
+                return self.tower(*args).float()
+
+    def card_modes(fn, bf16_fn=None):
+        """fn() on the card in float32, with cuDNN TF32 off, and under
+        bf16 autocast (bf16_fn() where given)."""
+        out = {"fp32": fn()}
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            out["tf32_off"] = fn()
+        finally:
+            torch.backends.cudnn.allow_tf32 = True
+        with torch.autocast("cuda", torch.bfloat16):
+            out["bf16"] = (bf16_fn or fn)()
+        return out
+
+    wav = torch.from_numpy(np.stack([load_wav_16k(p, 1000) for p in few]))
+    examples = torch.from_numpy(np.concatenate(
+        [vggish.waveform_to_examples(vggish.load_audio_fad(p, 1000)) for p in few]))
+    cnn14_card, cnn14_host = (panns.load_cnn14(ckpt["cnn14"], d) for d in ("cuda", "cpu"))
+    vggish_card, vggish_host = (vggish.load_vggish(ckpt["vggish"], d) for d in ("cuda", "cpu"))
+    clap_host = CLAPWrapper(*load_clap_towers(ckpt["clap"], "cpu"), standin)
+    clap_bf16 = CLAPWrapper(Bf16(clap.audio_tower), Bf16(clap.text_tower), standin)
+    np_ = lambda x: x.float().cpu().numpy()
+    with torch.no_grad():
+        runs = {
+            "cnn14": (card_modes(lambda: cnn14_card(wav.cuda())), cnn14_host(wav)),
+            "vggish": (card_modes(lambda: np_(vggish_card(examples.cuda()))),
+                       np_(vggish_host(examples))),
+            "clap_audio": (card_modes(lambda: clap.audio_embeddings(few),
+                                      lambda: clap_bf16.audio_embeddings(few)),
+                           clap_host.audio_embeddings(few)),
+            "clap_text": (card_modes(lambda: clap.text_embeddings(caps),
+                                     lambda: clap_bf16.text_embeddings(caps)),
+                          clap_host.text_embeddings(caps)),
+        }
+    for name, key in (("cnn14_embedding", "2048"), ("cnn14_logits", "logits")):
+        card, host = runs["cnn14"]
+        runs[name] = ({m: np_(v[key]) for m, v in card.items()}, np_(host[key]))
+    agreement = {}
+    for name in TOL_EVAL:
+        card, host = runs[name]
+        reading = _agreement(card["fp32"], host)
+        reading["tf32_off"] = _agreement(card["tf32_off"], host)
+        reading["tf32_vs_tf32_off_centred_rel_l2"] = _agreement(
+            card["fp32"], card["tf32_off"])["centred_rel_l2"]
+        reading["bf16_control"] = _agreement(card["bf16"], host)
+        reading["tol"] = TOL_EVAL[name]
+        reading["ok"] = _agreement_err(reading) <= TOL_EVAL[name] and \
+            reading["spread"] >= EVAL_MIN_SPREAD
+        reading["control_caught"] = _agreement_err(reading["bf16_control"]) > TOL_EVAL[name]
+        agreement[name] = reading
+    return few, caps, agreement
+
+
+def eval_phase(torch, ctx, reset_counters, read_counters):
+    """The evaluation harness at the backbones' published widths (Cnn14 at
+    16 kHz, VGGish, CLAP HTSAT-base with RoBERTa-base and a joint width of
+    512; seeded random weights as the reference's three checkpoint files):
+    the serve phase's 32 student wavs against its 32 teacher wavs with the
+    manifest's captions, through the port's evaluate_existing (the generated
+    mels through K4 too), with the launch counts; the serve phase's stage-1
+    CLI run, which evaluated through --test_references with all_mels.npz as
+    mel_path; the CLAP towers through a CLAPWrapper with a stand-in tokenizer
+    (the card's host has no RoBERTa files, so the harness gives NaN for the
+    CLAP scores there, as the JAX package does); and each backbone's
+    embeddings of 4 clips (the text tower's of 4 captions) against the same
+    weights in fp32 on the CPU, with a bf16 control (_agreement, TOL_EVAL). The backbones run in float32 with cuDNN's
+    TF32 convolutions, PyTorch's default and the reference's setting; the
+    matrix products stay full float32. Returns the phase's line and its
+    launch counts."""
+    import numpy as np
+
+    from consistencytta_torch.cli import evaluate_existing
+    from consistencytta_torch.evaluation import metrics
+    from consistencytta_torch.evaluation.clap_model import (
+        CLAPWrapper, RobertaConfig, load_clap_towers,
+    )
+    from consistencytta_torch.evaluation.harness import MEL_BATCH, RESULT_KEYS
+    from consistencytta_torch.evaluation.mels import (
+        eval_mel_frontend, load_wav_16k, normalized_logmel,
+    )
+    from consistencytta_torch.io.audio import write_wav
+    from consistencytta_torch.text.tokenizer import HashTokenizer, _tokenizer_files_present
+
+    names, captions, ckpt = ctx["names"], ctx["captions"], ctx["checkpoints"]
+    gen_dir, ref_dir = ctx["gen_dir"], ctx["ref_dir"]
+    gen_paths = [os.path.join(gen_dir, n) for n in names]
+    ref_paths = [os.path.join(ref_dir, n) for n in names]
+    caps_path = os.path.join(os.path.dirname(gen_dir), "captions.json")
+    with open(caps_path, "w") as f:
+        json.dump(captions, f)
+    # the harness's CLAP scores are NaN where the RoBERTa tokenizer's files
+    # are absent, as the JAX harness's would be
+    clap_nan = not _tokenizer_files_present("roberta-base")
+    clap_keys = {"gt_text_clap_score", "gen_text_clap_score", "gen_gt_clap_score"}
+
+    def check_result(what, result):
+        missing = [k for k in RESULT_KEYS if k not in result]
+        bad = [k for k in RESULT_KEYS if k in result and not np.isfinite(result[k])
+               and not (clap_nan and k in clap_keys)]
+        if missing or bad or (clap_nan and not all(np.isnan(result[k]) for k in clap_keys)):
+            fail(f"eval: {what}: keys missing {missing}, not finite {bad}: {result}")
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    try:
+        argv = ["--gen_dir", gen_dir, "--ref_dir", ref_dir, "--captions_json", caps_path,
+                "--cnn14_checkpoint", ckpt["cnn14"], "--vggish_checkpoint", ckpt["vggish"],
+                "--clap_checkpoint", ckpt["clap"]]
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = time.perf_counter()
+        result, parts = evaluate_existing.evaluate(evaluate_existing.parse_args(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counters()
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        # K4: one 512-point launch for the 32 generated files' mels and one for
+        # the references' (one length, at most MEL_BATCH rows a launch)
+        batches = -(-len(names) // MEL_BATCH)
+        expected = {"flash_mha_packed": 0, "flash_self_attention": 0, "fused_mrf_level": 0,
+                    "stft_magnitude": 2 * batches, "dilated_conv1d": 0}
+        if counts != expected:
+            fail(f"eval: launch counts {counts} != expected {expected}")
+        check_result("evaluate_existing", result)
+        with open(gen_dir + "_evaluation_results.json") as f:
+            if json.dumps(json.load(f)) != json.dumps(result):
+                fail("eval: the results file differs from the returned metrics")
+
+        # the CLI path: the serve phase's stage-1 run with --test_references
+        cli_result = {k: ctx["stage1"].get(k) for k in RESULT_KEYS}
+        check_result("the CLI's --test_references run", cli_result)
+        with open(ctx["stage1_dir"] + "_evaluation_results.json") as f:
+            if json.dumps(json.load(f)) != json.dumps(cli_result):
+                fail("eval: the CLI's results file differs from its summary line")
+
+        # CLAP through a stand-in tokenizer (the hash tokenizer's ids, padded
+        # to 77): the towers at full width on the 64 files and 32 captions
+        standin = HashTokenizer(vocab_size=RobertaConfig().vocab_size)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clap = CLAPWrapper(*load_clap_towers(ckpt["clap"], "cuda"), standin)
+        clap_load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        clap_gen, clap_ref = clap.audio_embeddings(gen_paths), clap.audio_embeddings(ref_paths)
+        clap_audio_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        clap_text = clap.text_embeddings([captions[n] for n in names])
+        clap_text_s = time.perf_counter() - t0
+        scores = metrics.clap_scores(clap_ref, clap_gen, clap_text)
+        if not all(np.isfinite(v) for v in scores.values()):
+            fail(f"eval: stand-in CLAP scores {scores}")
+
+        t0 = time.perf_counter()
+        few, caps, agreement = eval_agreement(torch, ckpt, clap, standin, gen_paths[0],
+                                              ref_paths[0], [captions[n] for n in names[:4]])
+        agree_s = time.perf_counter() - t0
+
+        # the harness's batched K4 launch against one launch a file: each
+        # frame is computed on its own, so the magnitudes agree bit for bit;
+        # the mel product after it is cuBLAS's at another row count
+        frontend = eval_mel_frontend("cuda")
+        wavs = np.stack([load_wav_16k(p, 1000) for p in gen_paths[:4]])
+        with torch.no_grad():
+            batch_mag = frontend.magnitude(torch.from_numpy(wavs).cuda())
+            file_mag = torch.cat([frontend.magnitude(torch.from_numpy(w[None]).cuda())
+                                  for w in wavs])
+        mag_equal = bool(torch.equal(batch_mag, file_mag))
+        mel_diff = float(np.abs(normalized_logmel(wavs, frontend) - np.stack(
+            [normalized_logmel(w, frontend) for w in wavs])).max())
+        if not mag_equal or not mel_diff <= 1e-5:
+            fail(f"eval: batched K4 rows differ from per-file launches (magnitudes equal "
+                 f"{mag_equal}, normalised mels {mel_diff})")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+    paired = parts.get("lsd", 0.0) + parts.get("psnr_ssim", 0.0)
+    line = {
+        "phase": "eval", "config": "Cnn14 16 kHz, VGGish, CLAP HTSAT-base + RoBERTa-base "
+        "(joint 512); seeded random weights as the reference's checkpoint files",
+        "precision": "float32; cuDNN convolutions in TF32 (PyTorch's default), matrix "
+        "products in full float32",
+        "pairs": len(names), "gen": "serve stage-2 student", "ref": "serve stage-2 teacher",
+        "metrics": result, "cli_metrics": cli_result,
+        "cli_eval_seconds": ctx["stage1"]["eval_seconds"],
+        "wall_seconds": wall, "clips_per_s": len(names) / wall,
+        "seconds": {"wav_load": parts.get("wav_load"), "paired_metrics": paired,
+                    "mels": parts.get("mels"), "cnn14": parts.get("cnn14"),
+                    "vggish": parts.get("vggish"), "clap_audio_64_files": clap_audio_s,
+                    "clap_text_32_captions": clap_text_s, "clap_load": clap_load_s,
+                    "fd_sqrtm": parts.get("frechet_distance"),
+                    "metric_math": parts.get("frechet_distance", 0.0)
+                    + parts.get("kl_isc_kid", 0.0) + parts.get("frechet_audio_distance", 0.0),
+                    "harness_parts": parts,
+                    "checkpoint_write": ctx["checkpoint_write_seconds"],
+                    "cpu_agreement": agree_s},
+        "peak_memory_gb": peak_gb, "launches": counts, "expected_launches": expected,
+        "clap_scores_nan_without_tokenizer_files": clap_nan, "standin_clap_scores": scores,
+        "reference": {"files": len(few), "captions": len(caps), "min_spread": EVAL_MIN_SPREAD,
+                      **agreement},
+        "batched_k4_rows": {"files": len(wavs), "magnitudes_bit_equal": mag_equal,
+                            "normalised_mel_max_abs_diff": mel_diff, "tol": 1e-5},
+    }
+    bad = {k: v for k, v in agreement.items() if not (v["ok"] and v["control_caught"])}
+    if bad:
+        emit(line)
+        fail(f"eval: backbones on the card against the fp32 CPU reference (a reading over its "
+             f"limit, a set that does not lie apart, or a bf16 control under it): {bad}")
+    return line, counts
 
 
 def main() -> None:
@@ -361,12 +681,16 @@ def main() -> None:
     smi = nvidia_smi("name,power.limit")
 
     # -- env ------------------------------------------------------------------
+    import numpy
+    import scipy
+
     t0 = time.perf_counter()
     build_s = _build.build()
     emit({
         "phase": "env", "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(), "torch": torch.__version__,
         "cuda": torch.version.cuda, "python": sys.version.split()[0],
+        "numpy_scipy": [numpy.__version__, scipy.__version__],
         "build_seconds": {k: round(v, 2) for k, v in build_s.items()},
         "build_wall_seconds": round(time.perf_counter() - t0, 2),
         "clocks_power": nvidia_smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu"),
@@ -1028,11 +1352,15 @@ def main() -> None:
     serve_dir = os.path.join(root, "outputs", f"chip_smoke_serve_{os.getpid()}")
     os.makedirs(serve_dir)
     try:
-        serve, serve_launches = serve_phase(torch, config, serve_dir, reset_counters,
-                                            read_counters, fused_levels, tok, dev)
+        serve, serve_launches, serve_ctx = serve_phase(torch, config, serve_dir, reset_counters,
+                                                       read_counters, fused_levels, tok, dev)
+        emit(serve)
+        torch.cuda.empty_cache()
+        # -- eval: the evaluation harness on the serve phase's files ------------
+        evaluation, eval_launches = eval_phase(torch, serve_ctx, reset_counters, read_counters)
     finally:
         shutil.rmtree(serve_dir, ignore_errors=True)
-    emit(serve)
+    emit(evaluation)
 
     # -- summary ----------------------------------------------------------------
     sources = {
@@ -1057,19 +1385,21 @@ def main() -> None:
                           "once each; on no path, as in the JAX package",
     }
     # K4's one counter counts both filter lengths: the train path runs only
-    # N = 1024, the serve path only N = 512, so each row takes its path's
+    # N = 1024, the serve and eval paths only N = 512, so each row takes its paths'
     runs = {"generate": f"the generate run's {calls} calls",
             "train": f"the train run's {n_train_steps} steps and one validation",
-            "serve": "the serve run's two CLI runs"}
+            "serve": "the serve run's two CLI runs (the second evaluating)",
+            "eval": "the eval run's evaluate_existing"}
     kernels = []
     for name, (src, rep) in sources.items():
         r = results[name]
         b_ms, b_by = bound(r["flops"], r["bytes"], r["peak"])
         counter = "stft_magnitude" if name.startswith("stft") else name
         paths = {"generate": launches[counter], "train": train_launches[counter],
-                 "serve": serve_launches[counter]}
+                 "serve": serve_launches[counter], "eval": eval_launches[counter]}
         if counter == "stft_magnitude":
-            paths = {k: v for k, v in paths.items() if (k == "serve") == (name != counter)}
+            paths = {k: v for k, v in paths.items()
+                     if (k in ("serve", "eval")) == (name != counter)}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(paths.values()), **{f"launches_{k}": v for k, v in paths.items()},

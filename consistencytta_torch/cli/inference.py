@@ -14,8 +14,12 @@ files as `all_mels.npz`, and appends one line to `summary.jsonl`. `--stage 1`
 samples the guided student (DDIM, or Heun with `--use_edm`) instead of the
 consistency student. Same flags and defaults as the JAX CLI, plus
 `--device` (default: the card). `--use_bf16` selects bf16 weights and
-compute; without it the port runs in float32. Evaluating against
-`--test_references` is not ported yet: pass `--skip_eval`.
+compute; without it the port runs in float32. With `--test_references` and
+without `--skip_eval`, the evaluation harness then scores the written files
+against the references (the backbones from `ckpt/` under the working
+directory, as in the JAX CLI; the stored mels as `mel_path`), writes
+`<output_dir>_evaluation_results.json` and adds the metrics to the summary
+line.
 """
 
 from __future__ import annotations
@@ -134,12 +138,6 @@ def main(argv=None) -> dict:
         if "stage" in args._explicit and "stage" in replay:
             assert args.stage == replay["stage"], "Stage mismatch between training and eval."
         apply_config_replay(args, replay)
-    if args.test_references and not args.skip_eval:
-        raise NotImplementedError(
-            "evaluation against --test_references (the backbones and the "
-            "EvaluationHelper) is not ported yet: it is the evaluation slice's work; "
-            "pass --skip_eval")
-
     config = build_pipeline_config(args)
     dtype = torch.bfloat16 if args.use_bf16 else torch.float32
     if args.stage == 1:
@@ -184,6 +182,7 @@ def main(argv=None) -> dict:
     seconds = {"gen_seconds": 0.0, "teacher_seconds": 0.0, "write_seconds": 0.0,
                "teacher_write_seconds": 0.0, "mel_seconds": 0.0}
     all_names, mel_names, mel_arrays = [], [], []
+    caption_map = {}
     b = args.batch_size
     for start in range(0, len(dataset), b):
         caps = dataset.captions[start:start + b]
@@ -210,6 +209,7 @@ def main(argv=None) -> dict:
             write_wav(path, clip, config.sample_rate)
         seconds["write_seconds"] += time.perf_counter() - t0
         all_names.extend(names)
+        caption_map.update(zip(names, caps))
         if save_mels:
             # the files as written, read back: one frontend launch a batch
             t0 = time.perf_counter()
@@ -230,11 +230,23 @@ def main(argv=None) -> dict:
     n = len(all_names)
     print(f"Generated {n} clips in {seconds['gen_seconds']:.1f}s "
           f"({n / max(seconds['gen_seconds'], 1e-9):.2f} clips/s)")
+    mel_npz = None
     if save_mels and mel_names:
-        np.savez(os.path.join(args.output_dir, "all_mels.npz"), names=np.array(mel_names),
-                 mels=np.stack(mel_arrays), target_centisec=1000)
+        mel_npz = os.path.join(args.output_dir, "all_mels.npz")
+        np.savez(mel_npz, names=np.array(mel_names), mels=np.stack(mel_arrays),
+                 target_centisec=1000)
 
     result = {"num_clips": n, "load_seconds": load_seconds, **seconds}
+    if args.test_references and not args.skip_eval:
+        from consistencytta_torch.evaluation.harness import EvaluationHelper
+
+        t0 = time.perf_counter()
+        helper = EvaluationHelper(sampling_rate=config.sample_rate, device=args.device)
+        metrics = helper.main(args.output_dir, args.test_references, captions=caption_map,
+                              mel_path=mel_npz)
+        result["eval_seconds"] = time.perf_counter() - t0
+        result.update(metrics)
+        print(json.dumps(metrics, indent=2))
     with open(os.path.join(args.output_dir, "summary.jsonl"), "a") as f:
         f.write(json.dumps({**vars(args), **result}, default=str) + "\n")
     return result

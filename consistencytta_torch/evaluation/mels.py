@@ -5,7 +5,7 @@ normalised log-mel of the eval frontend (a 512-point STFT, hop 160, fmin
 The port's counterpart of consistencytta_tpu/evaluation/harness.py:46-98
 (after audioldm_eval's load_mel.py and eval.py:90-93). The test-set CLI
 stores these mels of the files it writes as `all_mels.npz`, and the
-evaluation harness (not ported yet) computes PSNR and SSIM on them.
+evaluation harness (evaluation/harness.py) computes PSNR and SSIM on them.
 `normalized_logmel` takes a batch, so that one kernel launch serves a
 generate batch; each row equals the per-file result.
 """

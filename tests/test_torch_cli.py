@@ -201,8 +201,6 @@ def test_cli_refuses_before_working(tmp_path, manifest):
     argv = BASE + ["--test_file", manifest, "--output_dir", str(tmp_path / "o")]
     with pytest.raises(AssertionError, match="Stage mismatch"):
         cli.main(argv + ["--original_args", str(replay), "--stage", "1"])
-    with pytest.raises(NotImplementedError, match="evaluation"):
-        cli.main(argv + ["--test_references", str(tmp_path)])
     assert not os.path.exists(tmp_path / "o")
 
 

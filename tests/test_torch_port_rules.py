@@ -37,7 +37,10 @@ def test_port_imports_no_jax():
                 "training/optim.py", "training/ema.py", "training/losses.py",
                 "ops/resample.py", "io/audio.py", "io/checkpoints.py", "evaluation/mels.py",
                 "training/data.py", "cli/common.py", "cli/inference.py", "cli/demo.py",
-                "easy.py"):
+                "easy.py", "evaluation/metrics.py", "evaluation/panns.py",
+                "evaluation/vggish.py", "evaluation/clap_model.py", "evaluation/clap.py",
+                "evaluation/harness.py", "cli/evaluate_existing.py",
+                "tools/random_eval_checkpoints.py"):
         assert os.path.join("consistencytta_torch", new) in names
     bad = {}
     for path in files:
@@ -58,8 +61,12 @@ def test_port_imports_no_jax():
 def test_cuda_request_without_card_raises(monkeypatch):
     from consistencytta_torch.configs import PipelineConfig
     from consistencytta_torch.models.pipeline import Pipeline
-    from consistencytta_torch.cli import inference
+    from consistencytta_torch.cli import evaluate_existing, inference
+    from consistencytta_torch.evaluation.clap_model import CLAPMelFrontend, load_clap_towers
+    from consistencytta_torch.evaluation.harness import EvaluationHelper
     from consistencytta_torch.evaluation.mels import eval_mel_frontend
+    from consistencytta_torch.evaluation.panns import load_cnn14
+    from consistencytta_torch.evaluation.vggish import load_vggish
     from consistencytta_torch.ops.stft import MelFrontend
     from consistencytta_torch.utils import resolve_device
 
@@ -74,6 +81,17 @@ def test_cuda_request_without_card_raises(monkeypatch):
         eval_mel_frontend()
     with pytest.raises(RuntimeError, match="cuda"):
         inference.main(["--pipeline_config", "tiny", "--random_init", "--skip_eval"])
+    # the evaluation entry points: the card by default, the CPU only on request
+    with pytest.raises(RuntimeError, match="cuda"):
+        EvaluationHelper(cnn14_checkpoint=None, vggish_checkpoint=None, clap_checkpoint=None)
+    with pytest.raises(RuntimeError, match="cuda"):
+        evaluate_existing.main(["--gen_dir", ".", "--ref_dir", "."])
+    with pytest.raises(RuntimeError, match="cuda"):
+        CLAPMelFrontend()
+    for load in (load_cnn14, load_clap_towers, load_vggish):
+        with pytest.raises(RuntimeError, match="cuda"):
+            load(os.devnull)
+    assert EvaluationHelper(device="cpu").device.type == "cpu"
     assert MelFrontend(device="cpu").cos_basis.device.type == "cpu"
     assert resolve_device("cpu").type == "cpu"
 
