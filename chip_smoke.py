@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `consistencytta_torch/csrc/` (one nvcc per
-source, in parallel, into `build/`), then runs seven phases, each printing
+source, in parallel, into `build/`), then runs eight phases, each printing
 JSON lines:
 
   env      card name and power limit (nvidia-smi), torch / CUDA versions,
@@ -90,6 +90,25 @@ JSON lines:
            the set's embeddings apart and a bf16 control over the limit; the
            seconds of each part (FD's sqrtm on its own), clips/s and peak
            memory;
+  fit      the training CLI (consistencytta_torch.cli.train, in this
+           process) at full width from reference-format files (a TANGO
+           teacher, the AudioLDM VAE; seeded random bf16 weights) and a
+           synthetic manifest of 24 training and 8 validation 10-s clips,
+           with the recipe's flags (recipes/train.sh; epochs and
+           accumulation cut, FIT_CUTS): stage 1 (--augment) writing `best`;
+           stage 2 (Heun) seeded from that directory, writing `step_2`; a
+           resume from `step_2` whose restored roles, optimizer moments and
+           step must equal the files bit for bit, and which takes exactly
+           one more step; stage 2 with DDIM, writing nothing, with a batch-2
+           forward loss with given draws against fp32 on the CPU; stage 2
+           with --use_lora, whose `best` must load as plain modules equal to
+           the merged roles; the inference CLI on stage 2's `best` with its
+           config replay (4 non-silent 10-s wavs). Per run: the K1, K2 and
+           K4 launches against the counts the flags imply (fit_expected),
+           seconds per optimizer step, the loader's host seconds per step,
+           validation and checkpoint seconds, GB on disk, peak memory. At
+           most two checkpoints (~13 GB each) are on disk at once, under
+           outputs/, all deleted at the end;
   kernels  one line naming every kernel with its launches, error and times.
 
 Then the nvidia-smi line, then the last line
@@ -647,6 +666,339 @@ def eval_phase(torch, ctx, reset_counters, read_counters):
         fail(f"eval: backbones on the card against the fp32 CPU reference (a reading over its "
              f"limit, a set that does not lie apart, or a bf16 control under it): {bad}")
     return line, counts
+
+
+FIT_TRAIN_CLIPS = 24  # synthetic 10-s training clips (the manifest's cut)
+FIT_VAL_CLIPS = 8
+FIT_SEED = 2  # the reference-format teacher and VAE files
+# the recipe's flags (recipes/train.sh), verbatim but for the cuts listed on
+# the phase's line: stage 1, then stage 2 (EDM)
+FIT_STAGE1 = ["--stage", "1", "--augment", "--per_device_train_batch_size", "4",
+              "--gradient_accumulation_steps", "2", "--per_device_eval_batch_size", "6",
+              "--teacher_guidance_scale", "-1", "--target_ema_decay", ".95", "--ema_decay",
+              ".999", "--learning_rate", "1e-4", "--adam_weight_decay", "0",
+              "--num_diffusion_steps", "18", "--num_warmup_steps", "900", "--use_bf16",
+              "--snr_gamma", "5"]
+FIT_STAGE2 = ["--stage", "2", "--augment", "--per_device_train_batch_size", "6",
+              "--gradient_accumulation_steps", "2", "--per_device_eval_batch_size", "8",
+              "--teacher_guidance_scale", "-1", "--target_ema_decay", ".95", "--ema_decay",
+              ".999", "--learning_rate", "1e-5", "--adam_weight_decay", "1e-4", "--use_bf16",
+              "--num_diffusion_steps", "18", "--num_warmup_steps", "750", "--snr_gamma", "5",
+              "--loss_type", "mse"]
+FIT_CUTS = ["--num_train_epochs: --max_train_steps 2 (stage 1, stage 2), 3 (resume), 1 (DDIM, "
+            "LoRA)", "--gradient_accumulation_steps 8 -> 2 (stage 1), 5 -> 2 (stage 2)",
+            f"{FIT_TRAIN_CLIPS} training and {FIT_VAL_CLIPS} validation clips (synthetic)",
+            "--unet_model_config omitted: PipelineConfig() is its light UNet"]
+
+
+def fit_expected(stage, use_edm, accum, steps, val_batches, n=HEUN_STEPS, remat=True):
+    """The launches a training CLI run implies. Per micro-batch: the mel
+    frontend (K4) and the VAE encoder's mid-block attention (K2) once; 16 K1
+    launches per UNet query: stage 1 the CFG teacher and the student; stage
+    2 the teacher's interval (2 queries with Heun, 1 with DDIM), the target,
+    the student, and the student again when its forward is recomputed in the
+    backward (the backward itself is the plain version's). Per validation
+    batch: K4 and K2 once; stage 1 the teacher and the student; stage 2 the
+    teacher over the whole schedule (Heun 2 (n - 1) + 1 queries, DDIM n) and
+    the target twice."""
+    if stage == 1:
+        per_micro, per_val = 2, 2
+    elif use_edm:
+        per_micro, per_val = 4 + remat, 2 * (n - 1) + 1 + 2
+    else:
+        per_micro, per_val = 3 + remat, n + 2
+    micro = steps * accum
+    return {"flash_mha_packed": 16 * (micro * per_micro + val_batches * per_val),
+            "flash_self_attention": micro + val_batches, "fused_mrf_level": 0,
+            "stft_magnitude": micro + val_batches, "dilated_conv1d": 0}
+
+
+def _du_gb(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path)
+               for f in fs) / 1e9
+
+
+def fit_phase(torch, config, fit_dir, reset_counters, read_counters, fused_levels):
+    """The training CLI in this process at full width, from reference-format
+    files (a TANGO teacher and the AudioLDM VAE of seeded random bf16
+    weights) and a synthetic manifest: stage 1, stage 2 (Heun) seeded from
+    stage 1's `best` directory, a resume of its `step_2` checked bit for bit,
+    stage 2 with DDIM (with a forward loss against fp32 on the CPU) and with
+    --use_lora, then the inference CLI on stage 2's `best`. Returns the
+    phase's lines and the launch counts of its training runs and of its
+    inference run."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from consistencytta_torch.cli import inference, train
+    from consistencytta_torch.io import checkpoints
+    from consistencytta_torch.io.audio import write_wav
+    from consistencytta_torch.models.pipeline import STUDENT_ROLES, Pipeline
+    from consistencytta_torch.training import lora
+    from consistencytta_torch.training import step as tstep
+    from consistencytta_torch.training.data import to_device
+
+    t_phase = time.perf_counter()
+    free_gb = shutil.disk_usage(fit_dir).free / 1e9
+    if free_gb < 40:
+        fail(f"fit: {free_gb:.1f} GB free under {fit_dir}; two checkpoints take ~26 GB")
+    t0 = time.perf_counter()
+    src = Pipeline.create(config, dtype=torch.bfloat16, device="cuda", seed=FIT_SEED,
+                          roles=("teacher",))
+    cpu_sd = lambda m: {k: v.detach().cpu() for k, v in m.state_dict().items()}
+    tango, vae = os.path.join(fit_dir, "tango.bin"), os.path.join(fit_dir, "audioldm.ckpt")
+    torch.save({"unet." + k: v for k, v in cpu_sd(src.unets["teacher"]).items()}, tango)
+    torch.save({"state_dict": {**{"first_stage_model." + k: v
+                                  for k, v in cpu_sd(src.vae).items()},
+                               **{"first_stage_model.vocoder." + k: v
+                                  for k, v in cpu_sd(src.vocoder).items()}}}, vae)
+    del src
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(FIT_SEED)
+    t = np.arange(config.segment_samples) / config.sample_rate
+    manifests = {}
+    for split, n in (("train", FIT_TRAIN_CLIPS), ("valid", FIT_VAL_CLIPS)):
+        manifests[split] = os.path.join(fit_dir, f"{split}.jsonl")
+        with open(manifests[split], "w") as f:
+            for i in range(n):
+                path = os.path.join(fit_dir, f"{split}_{i:02d}.wav")
+                f0 = 110.0 * 2.0 ** (4.0 * rng.random())
+                write_wav(path, 0.3 * np.sin(2 * np.pi * f0 * t) + 0.1 * np.sin(4 * np.pi * f0 * t)
+                          + 0.05 * rng.standard_normal(t.size))
+                cap = PROMPTS[i % len(PROMPTS)] + SERVE_PLACES[(i // len(PROMPTS)) % 4]
+                f.write(json.dumps({"captions": cap, "location": path}) + "\n")
+    setup_s = time.perf_counter() - t0
+    common = ["--freeze_text_encoder", "--train_file", manifests["train"],
+              "--validation_file", manifests["valid"], "--test_file", manifests["valid"],
+              "--tango_model", tango, "--vae_checkpoint", vae, "--seed", "0"]
+    out = {k: os.path.join(fit_dir, k) for k in ("stage1", "stage2", "ddim", "lora", "gen")}
+    lines, totals = [], {}
+
+    def fit_run(name, argv, expected, checked=None):
+        """prepare (the pipeline, the loaders, the state, a resume) and run
+        one CLI invocation with the counters set to 0 before and read after."""
+        output_dir = argv[argv.index("--output_dir") + 1]
+        summary = os.path.join(output_dir, "summary.jsonl")
+        n_before = len(open(summary).readlines()) if os.path.exists(summary) else 0
+        reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = train.prepare(common + argv)
+        torch.cuda.synchronize()
+        prepare_s = time.perf_counter() - t0
+        extra = checked(r) if checked else {}
+        # each step's seconds, the first (a fresh pipeline's) apart: the loop
+        # keeps only their sum
+        step_fn, each = r.step_fn, []
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            metrics = step_fn(*args, **kwargs)
+            float(metrics["loss"])
+            each.append(time.perf_counter() - t0)
+            return metrics
+
+        r.step_fn = timed
+        t0 = time.perf_counter()
+        train.run(r)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counters()
+        with open(summary) as f:
+            records = [json.loads(x) for x in f.readlines()[n_before:]]
+        epochs = [x for x in records if "epoch_seconds" in x]
+        steps = sum(x["steps"] for x in epochs)
+        ckpts = sorted(d for d in os.listdir(output_dir)
+                       if os.path.isdir(os.path.join(output_dir, d)))
+        line = {
+            "phase": "fit", "run": name, "argv": " ".join(argv), "steps": steps,
+            "launches": counts, "expected_launches": expected,
+            "prepare_seconds": prepare_s, "run_seconds": run_s,
+            "seconds_per_optimizer_step": sum(x["step_seconds"] for x in epochs) / steps,
+            "step_seconds_each": each,
+            "loader_seconds_per_step": sum(x["loader_seconds"] for x in epochs) / steps,
+            "validation_seconds": sum(x.get("validation_seconds", 0.0) for x in epochs),
+            "checkpoint_save_seconds": sum(x["checkpoint_seconds"] for x in epochs),
+            "checkpoints": {d: _du_gb(os.path.join(output_dir, d)) for d in ckpts},
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "losses": {k: v for k, v in epochs[-1].items() if "loss" in k},
+            "resume_seconds": r.resume_seconds, **extra,
+        }
+        lines.append(line)
+        emit(line)
+        if counts != expected:
+            fail(f"fit {name}: launch counts {counts} != expected {expected}")
+        if not all(np.isfinite(v) for v in line["losses"].values()):
+            fail(f"fit {name}: non-finite losses {line['losses']}")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        return r
+
+    # 1. stage 1, best tracked on val_loss: 2 steps of 2 micro-batches of 4
+    # (3 originals and their mixes), one validation batch of 6
+    s1 = fit_run("stage1", FIT_STAGE1 + ["--max_train_steps", "2", "--checkpointing_steps",
+                                         "best", "--output_dir", out["stage1"]],
+                 fit_expected(1, False, 2, 2, 1))
+    del s1
+    torch.cuda.empty_cache()
+    # 2. stage 2, Heun, seeded from stage 1's best directory; step_2 written
+    s2_argv = FIT_STAGE2 + ["--tango_model", tango, "--use_edm"]
+    s2 = fit_run("stage2_heun", s2_argv + [
+        "--stage1_model", os.path.join(out["stage1"], "best"), "--max_train_steps", "2",
+        "--checkpointing_steps", "2", "--output_dir", out["stage2"]],
+                 fit_expected(2, True, 2, 2, 1))
+    del s2
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(out["stage1"], "best"))
+
+    # 3. resume from step_2: the restored state against the files, bit for
+    # bit, then exactly one more step (step 3), and best written
+    step2 = os.path.join(out["stage2"], "step_2")
+
+    def check_resume(r):
+        t0 = time.perf_counter()
+        load = lambda f: torch.load(os.path.join(step2, f), map_location="cpu", mmap=True,
+                                    weights_only=True)
+        model, opt, sched = (load(f) for f in (checkpoints.MODEL_FILE,
+                                               checkpoints.OPTIMIZER_FILE,
+                                               checkpoints.SCHEDULER_FILE))
+        unequal, n = [], 0
+        for role in STUDENT_ROLES:
+            for k, v in getattr(r.state, role).state_dict().items():
+                n += 1
+                if not torch.equal(v.cpu(), model[f"{role}_unet.{k}"]):
+                    unequal.append(f"{role}.{k}")
+        for i, s in r.state.optimizer.state_dict()["state"].items():
+            for k, v in s.items():
+                n += 1
+                if not torch.equal(torch.as_tensor(v).cpu(), torch.as_tensor(opt["state"][i][k])):
+                    unequal.append(f"optimizer.{i}.{k}")
+        if unequal or r.state.step != 2 or sched["step"] != 2 \
+                or r.state.lr_scheduler.state_dict() != sched["lr_scheduler"]:
+            fail(f"fit resume: restored state differs from step_2: {unequal[:5]}, "
+                 f"step {r.state.step}")
+        return {"restored_tensors_equal": n, "restored_step": r.state.step,
+                "resume_check_seconds": time.perf_counter() - t0}
+
+    resumed = fit_run("stage2_resume", s2_argv + [
+        "--stage1_model", step2, "--max_train_steps", "3", "--checkpointing_steps", "best",
+        "--resume_from_checkpoint", step2, "--output_dir", out["stage2"]],
+                      fit_expected(2, True, 2, 1, 1), check_resume)
+    if resumed.state.step != 3 or lines[-1]["steps"] != 1:
+        fail(f"fit resume: step {resumed.state.step} after {lines[-1]['steps']} steps")
+    del resumed
+    torch.cuda.empty_cache()
+    shutil.rmtree(step2)
+    best2 = os.path.join(out["stage2"], "best")
+
+    # 4. stage 2, DDIM: one step and its validation, writing nothing; then a
+    # batch-2 forward loss with given draws against fp32 on the CPU
+    ddim_argv = FIT_STAGE2 + ["--tango_model", tango, "--stage1_model", best2,
+                              "--max_train_steps", "1", "--checkpointing_steps", "none",
+                              "--save_every", "1000", "--output_dir", out["ddim"]]
+    r = fit_run("stage2_ddim", ddim_argv, fit_expected(2, False, 2, 1, 1))
+    if os.listdir(out["ddim"]) != ["summary.jsonl"]:
+        fail(f"fit ddim: wrote {os.listdir(out['ddim'])}")
+    p = r.pipeline
+    sched = train.schedule_from_args(r.args, config.scheduler)
+    cfg = train.consistency_step_config_from_args(r.args)
+    batch = next(iter(r.make_eval_loader()))
+    micro = to_device({k: v[:2] for k, v in batch.items() if k != "captions"}, "cuda")
+    cpu_gen = torch.Generator().manual_seed(7)
+    draws = {"posterior_noise": torch.randn(p.latent_shape(2), generator=cpu_gen),
+             "eps": torch.randn(p.latent_shape(2), generator=cpu_gen),
+             "u": torch.tensor([3, 12]), "w": torch.tensor([0.3, 0.8])}
+
+    def forward_loss(pipe, m):
+        with torch.no_grad():
+            pred, target, snr = tstep.consistency_forward(
+                pipe, sched, cfg, pipe.unets["student"], pipe.unets["student_target"], m,
+                draws=draws)
+            inst = tstep.mse_instance(pred, target) \
+                * tstep.min_snr_weights_stage2(snr, cfg.snr_gamma)
+        return inst.mean().item(), pred.float().cpu(), target.float().cpu()
+
+    got = forward_loss(p, micro)
+    cpu = lambda m: copy.deepcopy(m).to("cpu", torch.float32)
+    ref = Pipeline(config, {k: cpu(p.unets[k]) for k in ("student", "student_target", "teacher")},
+                   cpu(p.vae), None, cpu(p.t5), torch.device("cpu"), torch.float32)
+    t0 = time.perf_counter()
+    want = forward_loss(ref, {k: v.cpu() for k, v in micro.items()})
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    reference = {"loss": got[0], "cpu_fp32_loss": want[0],
+                 "loss_rel_err": abs(got[0] - want[0]) / abs(want[0]),
+                 "tol_loss_rel_err": TOL_TRAIN_LOSS, "student_rel_l2": rel(got[1], want[1]),
+                 "target_rel_l2": rel(got[2], want[2]), "tol_rel_l2": 0.1,
+                 "cpu_fp32_seconds": time.perf_counter() - t0}
+    lines[-1]["reference"] = reference
+    emit({"phase": "fit", "run": "stage2_ddim", "reference": reference})
+    if not reference["loss_rel_err"] <= TOL_TRAIN_LOSS \
+            or not max(reference["student_rel_l2"], reference["target_rel_l2"]) <= 0.1:
+        fail(f"fit ddim: the forward on the card differs from fp32 on the CPU: {reference}")
+    del r, p, ref, micro, batch
+    torch.cuda.empty_cache()
+
+    # 5. stage 2 with --use_lora: one step; its best holds the merged roles,
+    # which load as plain modules
+    r = fit_run("stage2_lora", FIT_STAGE2 + [
+        "--tango_model", tango, "--use_edm", "--use_lora", "--stage1_model", best2,
+        "--max_train_steps", "1", "--checkpointing_steps", "best", "--output_dir", out["lora"]],
+                fit_expected(2, True, 2, 1, 1))
+    gen = Pipeline.create(config, dtype=torch.bfloat16, device="cuda", seed=5)
+    t0 = time.perf_counter()
+    loaded = checkpoints.load_frozen_and_roles(gen, model_path=os.path.join(out["lora"], "best"),
+                                               vae_checkpoint=vae)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    unequal = []
+    for role in STUDENT_ROLES:
+        want = lora.merged_state_dict(r.state.lora_base, getattr(r.state, role))
+        got = gen.unets[role].state_dict()
+        unequal += [f"{role}.{k}" for k, v in want.items()
+                    if not torch.equal(got[k], v.to(got[k].dtype))]
+    if unequal or not {"t5", *STUDENT_ROLES} <= set(loaded):
+        fail(f"fit lora: loaded {sorted(loaded)}; unequal to the merged roles: {unequal[:5]}")
+    lines[-1].update(lora_factors=lora.lora_param_count(r.state.student),
+                     lora_load_seconds=load_s)
+    del r, gen
+    torch.cuda.empty_cache()
+
+    # 6. the inference CLI on stage 2's best with its config replay, 4 rows
+    # in one batch: one student query, one decode, the batch's eval mels
+    test = os.path.join(fit_dir, "test.jsonl")
+    with open(manifests["valid"]) as f, open(test, "w") as g:
+        g.writelines(f.readlines()[:4])
+    reset_counters()
+    t0 = time.perf_counter()
+    res = inference.main(["--model", best2, "--original_args",
+                          os.path.join(out["stage2"], "summary.jsonl"), "--use_edm",
+                          "--use_ema", "--vae_checkpoint", vae, "--test_file", test,
+                          "--batch_size", "4", "--skip_eval", "--output_dir", out["gen"]])
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    infer_counts = read_counters()
+    expected = {"flash_mha_packed": 16, "flash_self_attention": 1,
+                "fused_mrf_level": fused_levels, "stft_magnitude": 1, "dilated_conv1d": 0}
+    wavs = sorted(n for n in os.listdir(out["gen"]) if n.endswith(".wav"))
+    for n in wavs:
+        sr, data = wavfile.read(os.path.join(out["gen"], n))
+        if sr != 16000 or data.shape != (160000,) or not np.abs(data).max() > 0:
+            fail(f"fit inference: {n}: {sr} Hz, {data.shape}, peak {np.abs(data).max()}")
+    line = {"phase": "fit", "run": "inference", "rows": res["num_clips"], "wavs": len(wavs),
+            "wall_seconds": infer_s, "launches": infer_counts, "expected_launches": expected,
+            **{k: v for k, v in res.items() if k.endswith("seconds")}}
+    lines.append(line)
+    emit(line)
+    if infer_counts != expected or len(wavs) != 4:
+        fail(f"fit inference: {len(wavs)} wavs, launch counts {infer_counts} != {expected}")
+    summary = {"phase": "fit", "config": "PipelineConfig() light UNet + teacher, T5-large, "
+               "bf16 frozen / fp32 trained; reference-format TANGO teacher and AudioLDM VAE "
+               "of seeded random weights; hash tokenizer", "cuts": FIT_CUTS,
+               "setup_seconds": setup_s, "disk_free_gb": free_gb,
+               "phase_seconds": time.perf_counter() - t_phase, "launches_training_runs": totals,
+               "launches_inference": infer_counts}
+    emit(summary)
+    return lines, totals, infer_counts
 
 
 def main() -> None:
@@ -1361,6 +1713,16 @@ def main() -> None:
     finally:
         shutil.rmtree(serve_dir, ignore_errors=True)
     emit(evaluation)
+    torch.cuda.empty_cache()
+
+    # -- fit: the training CLI at full width ----------------------------------------
+    fit_dir = os.path.join(root, "outputs", f"chip_smoke_fit_{os.getpid()}")
+    os.makedirs(fit_dir)
+    try:
+        _, fit_train, fit_infer = fit_phase(torch, config, fit_dir, reset_counters,
+                                            read_counters, fused_levels)
+    finally:
+        shutil.rmtree(fit_dir, ignore_errors=True)
 
     # -- summary ----------------------------------------------------------------
     sources = {
@@ -1389,17 +1751,21 @@ def main() -> None:
     runs = {"generate": f"the generate run's {calls} calls",
             "train": f"the train run's {n_train_steps} steps and one validation",
             "serve": "the serve run's two CLI runs (the second evaluating)",
-            "eval": "the eval run's evaluate_existing"}
+            "eval": "the eval run's evaluate_existing",
+            "fit": "the fit run's five training CLI runs and its inference CLI run"}
     kernels = []
     for name, (src, rep) in sources.items():
         r = results[name]
         b_ms, b_by = bound(r["flops"], r["bytes"], r["peak"])
         counter = "stft_magnitude" if name.startswith("stft") else name
         paths = {"generate": launches[counter], "train": train_launches[counter],
-                 "serve": serve_launches[counter], "eval": eval_launches[counter]}
+                 "serve": serve_launches[counter], "eval": eval_launches[counter],
+                 "fit": fit_train[counter] + fit_infer[counter]}
         if counter == "stft_magnitude":
-            paths = {k: v for k, v in paths.items()
-                     if (k in ("serve", "eval")) == (name != counter)}
+            # training runs take N = 1024, the inference CLI's eval mels N = 512
+            n512 = name != counter
+            paths = {k: v for k, v in paths.items() if k == "fit" or (k in ("serve", "eval")) == n512}
+            paths["fit"] = fit_infer[counter] if n512 else fit_train[counter]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(paths.values()), **{f"launches_{k}": v for k, v in paths.items()},

@@ -1,4 +1,5 @@
-"""Reference-format torch checkpoints -> the port's modules.
+"""Reference-format torch checkpoints: the port's loader and its training
+checkpoints.
 
 The port's modules keep the reference's state-dict key names and torch
 layouts, so loading a reference checkpoint is key surgery plus
@@ -18,11 +19,30 @@ cli/common.py:80-234), which follows the reference:
     guidance init as the JAX package (`init_guidance_params`);
   * the FTVAE decoder pair and its EMA copy (stage 3).
 
+The port's training writes the reference's Accelerate layout, one
+directory per checkpoint (`best`, `epoch_<n>`, `step_<n>`):
+
+  {dir}/pytorch_model_2.bin  the UNet roles the run holds under the
+                             reference's names (`teacher_unet.*`,
+                             `student_unet.*`, `student_target_unet.*`,
+                             `student_ema_unet.*`; a LoRA run's roles merged
+                             into its base) and the T5 encoder
+                             (`text_encoder.*`), each in its own dtype;
+  {dir}/optimizer.bin        the optimizer's state dict, plus a LoRA run's
+                             factors of every role (`lora_factors`);
+  {dir}/scheduler.bin        the LR schedule's state dict and the step count;
+  {dir}/config.json          `PipelineConfig.to_dict()`.
+
+`model_path` and `stage1_model` may name such a directory; it is read as its
+`pytorch_model_2.bin`. The T5 encoder has no published checkpoint here (the
+reference takes it from the Hugging Face hub, which the port never
+contacts), so a training run random-inits it from its seed; where a
+checkpoint holds `text_encoder.*`, the loader takes the T5 from it, so that
+a trained student is served with the encoder it was trained with.
+
 Orbax checkpoint directories (the JAX package's own training output, its
-LoRA form included) are refused: reading them without JAX is the training
-slice's work. The T5 encoder has no checkpoint here (the reference takes it
-from the Hugging Face hub, which the port never contacts): it keeps the
-pipeline's seeded init.
+LoRA form included) are refused: reading them without JAX is
+`ROADMAP.md` item 2c's last part.
 
 `torch.load` unpickles: load only checkpoints you trust, as with the
 reference's own loader.
@@ -31,7 +51,9 @@ reference's own loader.
 from __future__ import annotations
 
 import copy
+import json
 import os
+import time
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -40,11 +62,17 @@ from torch import nn
 
 from consistencytta_torch.configs import UNetConfig
 from consistencytta_torch.nn.vae import AutoencoderKLDecoder
+from consistencytta_torch.training.lora import merged_state_dict
 from consistencytta_torch.utils import cast_module
 
 StateDict = Dict[str, torch.Tensor]
 UNET_ROLES = ("teacher", "student", "student_target", "student_ema")
 STUDENT_ROLES = ("student", "student_target", "student_ema")
+MODEL_FILE = "pytorch_model_2.bin"
+OPTIMIZER_FILE = "optimizer.bin"
+SCHEDULER_FILE = "scheduler.bin"
+CONFIG_FILE = "config.json"
+T5_PREFIX = "text_encoder."
 
 
 def load_torch_state_dict(path: str) -> StateDict:
@@ -160,6 +188,23 @@ def is_orbax_checkpoint(path: Optional[str]) -> bool:
     return bool(path) and os.path.isdir(path) and os.path.exists(os.path.join(path, "state"))
 
 
+def checkpoint_file(path: str) -> str:
+    """The model file a path names: a file as it is, a directory written by
+    `save_checkpoint` as its pytorch_model_2.bin. An orbax directory is
+    refused."""
+    if not os.path.isdir(path):
+        return path
+    if is_orbax_checkpoint(path):
+        raise NotImplementedError(
+            f"{path} is an orbax checkpoint directory (the JAX package's training "
+            "output, LoRA included): the port does not read those yet; it reads "
+            "reference-format torch files and its own checkpoint directories")
+    model = os.path.join(path, MODEL_FILE)
+    if not os.path.exists(model):
+        raise FileNotFoundError(f"{path} is a directory without {MODEL_FILE}")
+    return model
+
+
 def load_into(module: nn.Module, sd: Mapping[str, torch.Tensor], what: str,
           prefixes: Optional[Tuple[str, ...]] = None) -> None:
     """Copy the checkpoint's tensors into `module` (cast to its dtype and
@@ -196,17 +241,16 @@ def load_frozen_and_roles(pipeline, tango_model: Optional[str] = None,
     `vae_checkpoint` gives the VAE and, where it holds one, the vocoder;
     `model_path` a full ConsistencyTTA model (UNet roles, and an FTVAE
     decoder pair where present); otherwise `tango_model` (+ `stage1_model`)
-    the TANGO fan-out. Only the UNet roles the pipeline holds are loaded.
+    the TANGO fan-out. `model_path` and `stage1_model` may be checkpoint
+    directories (`checkpoint_file`); the T5 encoder comes from whichever of
+    the two holds `text_encoder.*`. Only the UNet roles the pipeline holds
+    are loaded.
     `random_init_seed`: the seed the pipeline's random init came from, when
     the caller lets that init stand for what no checkpoint holds; with None,
     every UNet role of the pipeline, the VAE and the vocoder must come from a
     checkpoint."""
-    for path in (model_path, stage1_model):
-        if is_orbax_checkpoint(path):
-            raise NotImplementedError(
-                f"{path} is an orbax checkpoint directory (the JAX package's training "
-                "output, LoRA included): the port does not read those yet; it reads "
-                "reference-format torch files")
+    model_path = checkpoint_file(model_path) if model_path else None
+    stage1_model = checkpoint_file(stage1_model) if stage1_model else None
     if stage1_model and not tango_model:
         raise ValueError("stage1_model seeds the student roles of a TANGO fan-out: "
                          "pass tango_model with it")
@@ -224,16 +268,20 @@ def load_frozen_and_roles(pipeline, tango_model: Optional[str] = None,
             load_into(pipeline.vocoder, voc, "vocoder")
             loaded["vocoder"] = vae_checkpoint
 
-    roles, ft_trained, ft_ema, source = None, None, None, None
+    roles, ft_trained, ft_ema, source, model_sd = None, None, None, None, None
     if model_path:
-        sd = load_torch_state_dict(model_path)
-        roles = split_consistencytta_checkpoint(sd)
-        ft_trained, ft_ema = extract_ftvae_decoders(sd)
+        model_sd = load_torch_state_dict(model_path)
+        roles = split_consistencytta_checkpoint(model_sd)
+        ft_trained, ft_ema = extract_ftvae_decoders(model_sd)
         source = model_path
     elif tango_model:
-        stage1 = load_torch_state_dict(stage1_model) if stage1_model else None
-        roles = fan_out_tango_checkpoint(load_torch_state_dict(tango_model), stage1)
-        source = tango_model if stage1 is None else f"{tango_model} + {stage1_model}"
+        model_sd = load_torch_state_dict(stage1_model) if stage1_model else None
+        roles = fan_out_tango_checkpoint(load_torch_state_dict(tango_model), model_sd)
+        source = tango_model if model_sd is None else f"{tango_model} + {stage1_model}"
+    t5_sd = strip_prefix(model_sd, T5_PREFIX) if model_sd else None
+    if t5_sd:
+        load_into(pipeline.t5, t5_sd, "t5")
+        loaded["t5"] = model_path or stage1_model
     for role in list(pipeline.unets):
         role_sd = roles.get(role) if roles else None
         if not role_sd:
@@ -264,3 +312,127 @@ def load_frozen_and_roles(pipeline, tango_model: Optional[str] = None,
             raise ValueError(f"no checkpoint holds {missing}; allow their seeded random "
                              "init (random_init_seed, --random_init) or pass their files")
     return loaded
+
+
+# -- training checkpoints ------------------------------------------------------
+
+
+def model_state_dict(state, pipeline=None) -> StateDict:
+    """pytorch_model_2.bin's tensors: the state's roles (a LoRA state's
+    merged into its base) and, with `pipeline`, its teacher and T5."""
+    sd: StateDict = {}
+    for role in STUDENT_ROLES:
+        module = getattr(state, role)
+        if module is None:
+            continue
+        role_sd = module.state_dict() if state.lora_base is None \
+            else merged_state_dict(state.lora_base, module)
+        sd.update({f"{role}_unet.{k}": v for k, v in role_sd.items()})
+    if pipeline is not None:
+        if "teacher" in pipeline.unets:
+            sd.update({f"teacher_unet.{k}": v
+                       for k, v in pipeline.unets["teacher"].state_dict().items()})
+        sd.update({T5_PREFIX + k: v for k, v in pipeline.t5.state_dict().items()})
+    return sd
+
+
+def _save(obj, path: str, retries: int) -> None:
+    """torch.save to a temporary name, then renamed into place, so that a
+    failed write never leaves a partial file under the checkpoint's name;
+    retried `retries` times, 2 s apart."""
+    for attempt in range(retries):
+        try:
+            torch.save(obj, path + ".tmp")
+            os.replace(path + ".tmp", path)
+            return
+        except OSError:
+            if attempt == retries - 1:
+                raise
+            time.sleep(2.0)
+
+
+def save_checkpoint(directory: str, state, pipeline=None, config=None,
+                    retries: int = 3) -> None:
+    """Write a training checkpoint directory (the layout in the module's
+    docstring). `pipeline` adds the teacher and the T5; `config` (a
+    PipelineConfig or a dict) is written as config.json."""
+    os.makedirs(directory, exist_ok=True)
+    _save(model_state_dict(state, pipeline), os.path.join(directory, MODEL_FILE), retries)
+    optimizer = state.optimizer.state_dict()
+    if state.lora_base is not None:
+        optimizer["lora_factors"] = {r: getattr(state, r).state_dict() for r in STUDENT_ROLES}
+    _save(optimizer, os.path.join(directory, OPTIMIZER_FILE), retries)
+    _save({"lr_scheduler": state.lr_scheduler.state_dict(), "step": state.step},
+          os.path.join(directory, SCHEDULER_FILE), retries)
+    if config is not None:
+        with open(os.path.join(directory, CONFIG_FILE), "w") as f:
+            json.dump(config.to_dict() if hasattr(config, "to_dict") else config, f,
+                      indent=2, default=str)
+
+
+def load_checkpoint(directory: str, state) -> Optional[dict]:
+    """Restore a `save_checkpoint` directory into `state` in place: the
+    roles, the optimizer, the LR schedule and the step. A LoRA state takes
+    its factors from optimizer.bin and keeps its base, which must be the one
+    the checkpoint's roles were merged from. Returns config.json's dict, or
+    None."""
+    dev = next(state.student.parameters()).device
+    load = lambda name: torch.load(os.path.join(directory, name), map_location=dev,
+                                   weights_only=True)
+    model = torch.load(os.path.join(directory, MODEL_FILE), map_location="cpu", mmap=True,
+                       weights_only=True)
+    optimizer = load(OPTIMIZER_FILE)
+    factors = optimizer.pop("lora_factors", None)
+    if (factors is None) != (state.lora_base is None):
+        raise ValueError(f"{directory}: a {'LoRA' if factors else 'full'} checkpoint cannot "
+                         f"resume a {'LoRA' if state.lora_base is not None else 'full'} run")
+    for role in STUDENT_ROLES:
+        module = getattr(state, role)
+        if module is None:
+            continue
+        if factors is not None:
+            module.load_state_dict(factors[role])
+        else:
+            load_into(module, strip_prefix(model, f"{role}_unet."), role)
+    if factors is not None:
+        saved = strip_prefix(model, "student_unet.")
+        merged = merged_state_dict(state.lora_base, state.student)
+        if any(not torch.allclose(merged[k], saved[k].to(dev), rtol=1e-6, atol=0)
+               for k in merged):
+            raise ValueError(f"{directory}: its student is not this run's LoRA base with the "
+                             "saved factors; resume with the flags that loaded the base")
+    state.optimizer.load_state_dict(optimizer)
+    sched = load(SCHEDULER_FILE)
+    state.lr_scheduler.load_state_dict(sched["lr_scheduler"])
+    state.step = int(sched["step"])
+    config_path = os.path.join(directory, CONFIG_FILE)
+    if not os.path.exists(config_path):
+        return None
+    with open(config_path) as f:
+        return json.load(f)
+
+
+class SummaryWriter:
+    """The append-only summary.jsonl of a run (the reference's per-epoch
+    log), mirrored to wandb where asked for and importable; without wandb
+    it writes the file alone."""
+
+    def __init__(self, output_dir: str, use_wandb: bool = False, wandb_kwargs=None):
+        os.makedirs(output_dir, exist_ok=True)
+        self.path = os.path.join(output_dir, "summary.jsonl")
+        self._wandb = None
+        if use_wandb:
+            try:
+                import wandb
+
+                wandb.init(**(wandb_kwargs or {}))
+                self._wandb = wandb
+            except Exception as e:  # wandb is optional: absent, offline or misconfigured
+                print(f"summary: wandb unavailable ({type(e).__name__}: {e}); "
+                      "logging to summary.jsonl only")
+
+    def log(self, record: dict) -> None:
+        with open(self.path, "a") as f:
+            f.write(json.dumps(record, default=float) + "\n")
+        if self._wandb is not None:
+            self._wandb.log(record)

@@ -10,7 +10,8 @@ is the inverse of the JAX package's torch importer, written independently.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import re
+from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -141,6 +142,24 @@ def unet_state_dict(p: Tree, config: UNetConfig) -> StateDict:
                     p[f"up_{i}_upsample"]["conv"])
     _norm(sd, "conv_norm_out", p["conv_norm_out"])
     _conv2d(sd, "conv_out", p["conv_out"])
+    return sd
+
+
+_LORA_NAME = re.compile(
+    r"(?:(down|up)_blocks\.(\d+)|mid_block)\.attentions\.(\d+)\.transformer_blocks\.(\d+)"
+    r"\.(attn[12])\.(to_q|to_k|to_v|to_out)(?:\.0)?\.weight")
+
+
+def lora_state_dict(tree: Tree, names: Sequence[str]) -> StateDict:
+    """A JAX LoRA factor tree ({..., attn: {proj: {a [in, r], b [r, out]}}},
+    training/lora.py) as the state dict of the port's `LoRAFactors` whose
+    adapted weights are `names` (`a.<i>`, `b.<i>` in the names' order)."""
+    sd: StateDict = {}
+    for i, name in enumerate(names):
+        kind, level, attn_idx, block, attn, proj = _LORA_NAME.fullmatch(name).groups()
+        top = f"{kind}_{level}_attn_{attn_idx}" if kind else f"mid_attn_{attn_idx}"
+        node = tree[top][f"block_{block}"][attn][proj]
+        sd[f"a.{i}"], sd[f"b.{i}"] = _t(node["a"]), _t(node["b"])
     return sd
 
 

@@ -4,9 +4,10 @@
     teacher's prediction distilled into the guidance-conditioned student at
     uniformly sampled DDPM timesteps;
   * build_consistency_train_step: stage 2, consistency distillation along
-    one Heun interval of the CFG teacher, against an EMA target network;
+    one solver interval of the CFG teacher (a Heun interval with `use_edm`,
+    else a DDIM step), against an EMA target network;
   * build_validation_step: the 4-loss stage-2 validation with the full
-    teacher rollout.
+    teacher rollout, for either solver.
 
 One step does: waveform -> mel (kernel K4 on the card) -> VAE encoder ->
 sampled latent; T5 on [uncond; cond]; the frozen teacher and target queries
@@ -26,8 +27,12 @@ in [0, 1), before the scaling by `max_rand_guidance_scale`), `u` [B] (stage
 (`uncondition`). With `accum_steps` > 1, `draws` is a list with one
 such dict per micro-batch.
 
-Not ported, and refused with `NotImplementedError`: the DDIM branch
-(`use_edm=False` or a DDIM schedule) and the `mel` / `stft` loss types.
+A LoRA state (`training/lora.py:init_lora_state`) holds rank-r factors in
+its three roles and the frozen base student in `lora_base`; every query of
+a role then runs the base with the factors merged in (`role_unet`).
+
+Not ported, and refused with `NotImplementedError`: the `mel` / `stft` loss
+types (stage 3).
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 
 from consistencytta_torch.models.pipeline import Pipeline
 from consistencytta_torch.ops.schedulers import (
+    DDIMSchedule,
     DDPMSchedule,
     HeunSchedule,
     min_snr_weights_stage1,
@@ -67,6 +73,7 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     lr_scheduler: torch.optim.lr_scheduler.LambdaLR
     max_grad_norm: Optional[float] = None
+    lora_base: Optional[nn.Module] = None  # set for a LoRA state: the frozen student
 
     @classmethod
     def create(cls, pipeline: Pipeline, config: OptimizerConfig = OptimizerConfig(),
@@ -118,14 +125,24 @@ class GuidedStepConfig:
     accum_steps: int = 1
 
 
-def _require_heun(schedule, cfg: ConsistencyStepConfig) -> None:
-    if not cfg.use_edm or not isinstance(schedule, HeunSchedule):
-        raise NotImplementedError(
-            "the DDIM branch of stage-2 training and validation is not ported: "
-            "use a HeunSchedule with use_edm=True"
-        )
+def _check_solver(schedule, cfg: ConsistencyStepConfig) -> None:
+    want = HeunSchedule if cfg.use_edm else DDIMSchedule
+    if not isinstance(schedule, want):
+        raise ValueError(f"use_edm={cfg.use_edm} takes a {want.__name__}, not "
+                         f"{type(schedule).__name__}")
     if cfg.loss_type != "mse":
-        raise NotImplementedError(f"loss_type {cfg.loss_type!r} is not ported: only 'mse' is")
+        raise NotImplementedError(f"loss_type {cfg.loss_type!r} is not ported: only 'mse' is "
+                                  "(stage 3, ROADMAP.md item 2f)")
+
+
+def role_unet(state: TrainState, role: nn.Module):
+    """What a query of `role` calls: the module itself, or for a LoRA state
+    the frozen base with the role's factors merged in."""
+    if state.lora_base is None:
+        return role
+    from consistencytta_torch.training.lora import LoRAUNet
+
+    return LoRAUNet(state.lora_base, role)
 
 
 class _Sampler:
@@ -183,21 +200,22 @@ def _guidance(sampler: _Sampler, cfg, b: int) -> torch.Tensor:
 
 def consistency_forward(
     pipeline: Pipeline,
-    schedule: HeunSchedule,
+    schedule,
     cfg: ConsistencyStepConfig,
-    student: nn.Module,
-    target: nn.Module,
+    student,
+    target,
     micro: Batch,
     generator: Optional[torch.Generator] = None,
     draws: Draws = None,
 ):
     """The stage-2 forward: sample adjacent solver steps, noise the latent,
-    run one Heun interval of the CFG teacher, evaluate the target network
-    (ground truth where t_next == 0) and the student.
+    run one interval of the CFG teacher (Heun with `use_edm`, else one DDIM
+    step), evaluate the target network (ground truth where t_next == 0) and
+    the student. `student` and `target` are UNets or what `role_unet` gives.
 
     Returns (student prediction from t_{n+1}, target from t_n, snr [B]);
     only the first carries gradients."""
-    _require_heun(schedule, cfg)
+    _check_solver(schedule, cfg)
     dev = pipeline.device
     sampler = _Sampler(dev, generator, draws)
     ids, mask, uids, umask = _text(pipeline, micro)
@@ -205,6 +223,7 @@ def consistency_forward(
     if cfg.uncondition:
         drop = sampler.bernoulli("drop", b, 0.1)[:, None]
         ids, mask = torch.where(drop, uids, ids), torch.where(drop, umask, mask)
+    n = schedule.num_steps if cfg.use_edm else schedule.num_inference_steps
 
     with torch.no_grad():
         z0 = pipeline.encode_audio(
@@ -212,30 +231,38 @@ def consistency_forward(
         )
         text_cf, mask_cf, text, mask_c = pipeline.encode_text_cfg(ids, mask, uids, umask)
         # adjacent solver steps t_{n+1} = t[u], t_n = t[u + 1]
-        u = sampler.randint("u", b, schedule.num_steps - 1)
+        u = sampler.randint("u", b, n - 1)
         w = _guidance(sampler, cfg, b)
         eps = sampler.normal("eps", z0.shape)
-
-        sigmas = torch.as_tensor(schedule.sigmas, device=dev)
         timesteps = torch.as_tensor(schedule.timesteps, device=dev)
-        sigma_u, sigma_next = sigmas[u], sigmas[u + 1]
         t_u, t_next = timesteps[u], timesteps[u + 1]
+        first = _rows(u == 0, z0)
 
-        z_noisy = schedule.add_noise(z0, eps, sigma_u)
-        # the first step starts from pure noise
-        z_np1 = torch.where(_rows(u == 0, z0), eps * schedule.init_noise_sigma, z_noisy)
+        if cfg.use_edm:
+            sigmas = torch.as_tensor(schedule.sigmas, device=dev)
+            sigma_u, sigma_next = sigmas[u], sigmas[u + 1]
+            z_noisy = schedule.add_noise(z0, eps, sigma_u)
+            # the first step starts from pure noise
+            z_np1 = torch.where(first, eps * schedule.init_noise_sigma, z_noisy)
 
-        def teacher_fn(z_scaled, t, sigma):
-            return pipeline.query_teacher_cfg(z_scaled, t, text_cf, mask_cf, w)
+            def teacher_fn(z_scaled, t, sigma):
+                return pipeline.query_teacher_cfg(z_scaled, t, text_cf, mask_cf, w)
 
-        zhat_n, _ = schedule.heun_pair(z_np1, sigma_u, sigma_next, teacher_fn, t_u, t_next)
-        z_np1_scaled = schedule.scale_model_input(z_np1, sigma_u)
-        zhat_n_scaled = schedule.scale_model_input(zhat_n, sigma_next)
-        snr = schedule.snr(u)
+            zhat_n, _ = schedule.heun_pair(z_np1, sigma_u, sigma_next, teacher_fn, t_u, t_next)
+            z_np1_scaled = schedule.scale_model_input(z_np1, sigma_u)
+            zhat_n_scaled = schedule.scale_model_input(zhat_n, sigma_next)
+            snr = schedule.snr(u)
+        else:
+            z_noisy = schedule.add_noise(z0, eps, t_u)
+            z_np1 = torch.where(first, eps, z_noisy)
+            eps_pred = pipeline.query_teacher_cfg(z_np1, t_u, text_cf, mask_cf, w)
+            zhat_n = schedule.step(eps_pred, t_u, z_np1)
+            z_np1_scaled, zhat_n_scaled = z_np1, zhat_n
+            snr = schedule.snr(t_u)
 
         # target network on the teacher-stepped latent; ground truth at t = 0
         zhat_0_from_n = pipeline.query_unet(target, zhat_n_scaled, t_next, text, mask_c, w)
-        zhat_0_from_n = torch.where(_rows(t_next == 0.0, z0), z0, zhat_0_from_n)
+        zhat_0_from_n = torch.where(_rows(t_next == 0, z0), z0, zhat_0_from_n)
 
     # trainable student on the noisier latent
     args = (student, z_np1_scaled, t_u, text, mask_c, w)
@@ -296,7 +323,7 @@ def guarded_update(state: TrainState, loss: torch.Tensor) -> bool:
 
 def build_consistency_train_step(
     pipeline: Pipeline,
-    schedule: HeunSchedule,
+    schedule,
     cfg: ConsistencyStepConfig = ConsistencyStepConfig(),
     loss_fn_override: Optional[Callable] = None,
 ) -> Callable:
@@ -304,15 +331,16 @@ def build_consistency_train_step(
 
     batch: dict with wav [B, S], ids / mask / uncond_ids / uncond_mask
     [B, L]; B = accum_steps * micro_batch. `loss_fn_override(pred, target,
-    micro)` replaces the per-instance loss. The state is updated in place."""
-    _require_heun(schedule, cfg)
+    micro)` replaces the per-instance loss. `schedule` is a HeunSchedule
+    with `cfg.use_edm`, else a DDIMSchedule. The state is updated in place."""
+    _check_solver(schedule, cfg)
     resolve_device(pipeline.device)
 
     def step(state: TrainState, batch: Batch, generator=None, draws=None):
         def micro_loss(micro, generator, draws):
             pred, target, snr = consistency_forward(
-                pipeline, schedule, cfg, state.student, state.student_target,
-                micro, generator, draws,
+                pipeline, schedule, cfg, role_unet(state, state.student),
+                role_unet(state, state.student_target), micro, generator, draws,
             )
             if loss_fn_override is not None:
                 inst = loss_fn_override(pred, target, micro)
@@ -334,16 +362,21 @@ def build_consistency_train_step(
 
 def build_validation_step(
     pipeline: Pipeline,
-    schedule: HeunSchedule,
+    schedule,
     cfg: ConsistencyStepConfig = ConsistencyStepConfig(),
 ) -> Callable:
     """Stage-2 validation: start at t_0 (pure noise), run the teacher all the
     way to t = 0, and compare the target network's two estimates along the
-    first interval with each other, the ground truth and the teacher.
+    first interval with each other, the ground truth and the teacher. Takes
+    the solver of the schedule: Heun intervals for a HeunSchedule, DDIM
+    steps for a DDIMSchedule.
 
     Returns validate(state, batch, generator=None, draws=None) ->
     dict(loss_w_gt, loss_w_teacher, loss_consistency, loss_teacher)."""
-    _require_heun(schedule, cfg)
+    heun = isinstance(schedule, HeunSchedule)
+    if not heun and not isinstance(schedule, DDIMSchedule):
+        raise ValueError(f"validation takes a HeunSchedule or a DDIMSchedule, not "
+                         f"{type(schedule).__name__}")
     resolve_device(pipeline.device)
 
     @torch.no_grad()
@@ -359,25 +392,45 @@ def build_validation_step(
         w = _guidance(sampler, cfg, b)
         eps = sampler.normal("eps", z0.shape)
         z_np1 = eps * schedule.init_noise_sigma
+        target = role_unet(state, state.student_target)
 
-        def teacher_fn(z_scaled, t, sigma):
-            return pipeline.query_teacher_cfg(z_scaled, t, text_cf, mask_cf, w)
+        if heun:
+            def teacher_fn(z_scaled, t, sigma):
+                return pipeline.query_teacher_cfg(z_scaled, t, text_cf, mask_cf, w)
 
-        t0, t1, s0, s1 = schedule.interval(0, b, dev)
-        zhat_n, _ = schedule.heun_pair(z_np1, s0, s1, teacher_fn, t0, t1)
+            t0, t1, s0, s1 = schedule.interval(0, b, dev)
+            zhat_n, _ = schedule.heun_pair(z_np1, s0, s1, teacher_fn, t0, t1)
+            z_np1_scaled = schedule.scale_model_input(z_np1, s0)
+            zhat_n_scaled = schedule.scale_model_input(zhat_n, s1)
+            # the teacher's rollout over the remaining intervals and the last step
+            z_teacher_from = lambda z: schedule.sample_loop(z, teacher_fn, start=1)
+            snr0 = schedule.snr(torch.zeros(b, dtype=torch.long, device=dev))
+        else:
+            full = lambda i: torch.full((b,), int(schedule.timesteps[i]), device=dev)
+            t0, t1 = full(0), full(1)
+
+            def ddim_step(z, t):
+                return schedule.step(
+                    pipeline.query_teacher_cfg(z, t, text_cf, mask_cf, w), t, z)
+
+            zhat_n = ddim_step(z_np1, t0)
+            z_np1_scaled, zhat_n_scaled = z_np1, zhat_n
+
+            def z_teacher_from(z):  # DDIM steps over the remaining timesteps
+                for i in range(1, schedule.num_inference_steps):
+                    z = ddim_step(z, full(i))
+                return z
+
+            snr0 = schedule.snr(t0)
+
         # the target network's estimates from both ends of the first interval
-        target = state.student_target
-        zhat0_from_np1 = pipeline.query_unet(
-            target, schedule.scale_model_input(z_np1, s0), t0, text, mask_c, w)
-        zhat0_from_n = pipeline.query_unet(
-            target, schedule.scale_model_input(zhat_n, s1), t1, text, mask_c, w)
-        # the teacher's rollout over the remaining intervals and the last step
-        z_teacher = schedule.sample_loop(zhat_n, teacher_fn, start=1)
+        zhat0_from_np1 = pipeline.query_unet(target, z_np1_scaled, t0, text, mask_c, w)
+        zhat0_from_n = pipeline.query_unet(target, zhat_n_scaled, t1, text, mask_c, w)
+        z_teacher = z_teacher_from(zhat_n)
 
         inst = mse_instance(zhat0_from_np1, zhat0_from_n)
         if cfg.snr_gamma is not None:
-            zeros = torch.zeros(b, dtype=torch.long, device=dev)
-            inst = inst * min_snr_weights_stage2(schedule.snr(zeros), cfg.snr_gamma)
+            inst = inst * min_snr_weights_stage2(snr0, cfg.snr_gamma)
         return {
             "loss_w_gt": mse_instance(zhat0_from_np1, z0).mean(),
             "loss_w_teacher": mse_instance(zhat0_from_np1, z_teacher).mean(),

@@ -40,7 +40,8 @@ def test_port_imports_no_jax():
                 "easy.py", "evaluation/metrics.py", "evaluation/panns.py",
                 "evaluation/vggish.py", "evaluation/clap_model.py", "evaluation/clap.py",
                 "evaluation/harness.py", "cli/evaluate_existing.py",
-                "tools/random_eval_checkpoints.py"):
+                "tools/random_eval_checkpoints.py", "training/lora.py", "training/loop.py",
+                "cli/train.py"):
         assert os.path.join("consistencytta_torch", new) in names
     bad = {}
     for path in files:
@@ -61,7 +62,7 @@ def test_port_imports_no_jax():
 def test_cuda_request_without_card_raises(monkeypatch):
     from consistencytta_torch.configs import PipelineConfig
     from consistencytta_torch.models.pipeline import Pipeline
-    from consistencytta_torch.cli import evaluate_existing, inference
+    from consistencytta_torch.cli import evaluate_existing, inference, train
     from consistencytta_torch.evaluation.clap_model import CLAPMelFrontend, load_clap_towers
     from consistencytta_torch.evaluation.harness import EvaluationHelper
     from consistencytta_torch.evaluation.mels import eval_mel_frontend
@@ -81,6 +82,8 @@ def test_cuda_request_without_card_raises(monkeypatch):
         eval_mel_frontend()
     with pytest.raises(RuntimeError, match="cuda"):
         inference.main(["--pipeline_config", "tiny", "--random_init", "--skip_eval"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--freeze_text_encoder", "--pipeline_config", "tiny", "--random_init"])
     # the evaluation entry points: the card by default, the CPU only on request
     with pytest.raises(RuntimeError, match="cuda"):
         EvaluationHelper(cnn14_checkpoint=None, vggish_checkpoint=None, clap_checkpoint=None)
@@ -113,6 +116,10 @@ def test_train_step_on_cuda_without_card_raises(monkeypatch, builder):
         (lambda cfg: schedulers.make_heun_schedule(cfg, 18))
     with pytest.raises(RuntimeError, match="cuda"):
         getattr(step, builder)(pipe, make(SchedulerConfig()))
+    if "guided" not in builder:  # the DDIM branch too
+        ddim = schedulers.make_ddim_schedule(SchedulerConfig(), 18)
+        with pytest.raises(RuntimeError, match="cuda"):
+            getattr(step, builder)(pipe, ddim, step.ConsistencyStepConfig(use_edm=False))
 
 
 def test_kernel_wrappers_take_the_plain_version_only_for_a_cpu_tensor():

@@ -320,15 +320,22 @@ def test_generation_roles_still_share_one_frozen_module():
 
 
 def test_unported_options_raise():
+    """Stage 3's loss types are refused; a solver that does not match
+    `use_edm` is an error; the DDIM branch builds."""
     p = Pipeline.create(PipelineConfig.tiny(), dtype=torch.float32, device="cpu",
                         roles=ROLES, training=True)
     heun = sched.make_heun_schedule(SchedulerConfig(), 18)
     ddim = sched.make_ddim_schedule(SchedulerConfig(), 18)
-    for schedule, cfg in ((ddim, step.ConsistencyStepConfig(use_edm=False)),
-                          (heun, step.ConsistencyStepConfig(use_edm=False)),
-                          (heun, step.ConsistencyStepConfig(loss_type="mel")),
-                          (heun, step.ConsistencyStepConfig(loss_type="stft"))):
-        with pytest.raises(NotImplementedError):
+    for loss_type in ("mel", "stft"):
+        with pytest.raises(NotImplementedError, match=loss_type):
+            step.build_consistency_train_step(p, heun, step.ConsistencyStepConfig(
+                loss_type=loss_type))
+    for schedule, cfg in ((heun, step.ConsistencyStepConfig(use_edm=False)),
+                          (ddim, step.ConsistencyStepConfig(use_edm=True))):
+        with pytest.raises(ValueError, match="use_edm"):
             step.build_consistency_train_step(p, schedule, cfg)
-        with pytest.raises(NotImplementedError):
-            step.build_validation_step(p, schedule, cfg)
+    ddim_cfg = step.ConsistencyStepConfig(use_edm=False)
+    assert callable(step.build_consistency_train_step(p, ddim, ddim_cfg))
+    assert callable(step.build_validation_step(p, ddim, ddim_cfg))
+    with pytest.raises(ValueError, match="DDPMSchedule"):
+        step.build_validation_step(p, sched.make_ddpm_schedule(SchedulerConfig()))

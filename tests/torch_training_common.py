@@ -137,23 +137,29 @@ def assert_states_agree(state, jstate, before):
     assert not torch.equal(state.student.state_dict()[FOURIER], before[FOURIER])
 
 
-def run_stage2_steps(accum: int, n_steps: int, micro: int = 2, heun_steps: int = 18):
+def run_stage2_steps(accum: int, n_steps: int, micro: int = 2, heun_steps: int = 18,
+                     use_edm: bool = True):
     """`n_steps` stage-2 optimizer steps of `accum` micro-batches on both
-    sides, from equal weights, with the same batches and draws. Returns
-    ([(port metrics, JAX metrics)], port state, JAX state, the student's
-    weights before the first step)."""
+    sides, from equal weights, with the same batches and draws, along Heun
+    intervals (`use_edm`) or DDIM steps of a `heun_steps`-step schedule.
+    Returns ([(port metrics, JAX metrics)], port state, JAX state, the
+    student's weights before the first step)."""
     jp, params, frozen = make_jax_side()
     jcfg, tcfg = optimizer_configs()
-    js = jsched.make_heun_schedule(jsched.SchedulerConfig(), heun_steps)
-    ts = sched.make_heun_schedule(SchedulerConfig(), heun_steps)
+    if use_edm:
+        js = jsched.make_heun_schedule(jsched.SchedulerConfig(), heun_steps)
+        ts = sched.make_heun_schedule(SchedulerConfig(), heun_steps)
+    else:
+        js = jsched.make_ddim_schedule(jsched.SchedulerConfig(), heun_steps)
+        ts = sched.make_ddim_schedule(SchedulerConfig(), heun_steps)
     tx = joptim.make_optimizer(jcfg)
     jstate = jstep.TrainState.create(params, tx)
     jrun = jax.jit(jstep.build_consistency_train_step(
-        jp, js, tx, jstep.ConsistencyStepConfig(accum_steps=accum)))
+        jp, js, tx, jstep.ConsistencyStepConfig(accum_steps=accum, use_edm=use_edm)))
     port = make_port(params)
     state = step.TrainState.create(port, tcfg)
     run = step.build_consistency_train_step(
-        port, ts, step.ConsistencyStepConfig(accum_steps=accum))
+        port, ts, step.ConsistencyStepConfig(accum_steps=accum, use_edm=use_edm))
     before = student_weights(state)
     metrics = []
     for i in range(n_steps):
