@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `consistencytta_torch/csrc/` (one nvcc per
-source, in parallel, into `build/`), then runs eight phases, each printing
+source, in parallel, into `build/`), then runs nine phases, each printing
 JSON lines:
 
   env      card name and power limit (nvidia-smi), torch / CUDA versions,
@@ -17,7 +17,11 @@ JSON lines:
            attention kernels' batch-1 lines also give the host time of one
            launch beside the library call's), with the
            gradient of the UNet attention kernel under autocast against the
-           plain version's at S = 1024, and with the error and
+           plain version's at S = 1024, of the VAE attention kernel under
+           autocast at the stage-3 batch of 2 (S = 4096), and of the MRF
+           level with respect to x at C = 128 and batch 2 (each with two
+           planted faults: a wrong scale and dk, dv exchanged; the slope
+           0.2 and one dilation triple reversed), and with the error and
            the tolerance (both scaled by the plain output's own size), the
            same tolerance applied to planted faults (the plain version with a
            wrong scale, a dropped tile, ...), which it must reject, and
@@ -109,6 +113,20 @@ JSON lines:
            validation and checkpoint seconds, GB on disk, peak memory. At
            most two checkpoints (~13 GB each) are on disk at once, under
            outputs/, all deleted at the end;
+  stage3   stage 3 through the same CLI (recipes/train.sh's stage-3 flags,
+           cuts in STAGE3_CUTS) from the fit phase's stage-2 `best` as
+           --stage1_model, with a CLAP checkpoint of seeded random weights at
+           published widths: --loss_type clap (2 steps), with a batch-2
+           forward loss with given draws against fp32 on the CPU and the
+           seconds and peak memory of the parts of one micro-batch;
+           --finetune_vae (2 steps, `step_2` written) and its resume, whose
+           restored roles, decoder pair, EMA decoder pair and optimizer
+           moments must equal the files bit for bit; one step each of
+           --loss_type mel, stft and --use_lora with clap; the inference CLI
+           on the FTVAE `step_2` through its EMA decoder (--use_ema). Per
+           run, the K1-K4 launches against the counts the flags imply
+           (fit_expected with the loss's decodes), seconds per optimizer
+           step, validation and checkpoint seconds, GB, peak memory;
   kernels  one line naming every kernel with its launches, error and times.
 
 Then the nvidia-smi line, then the last line
@@ -140,6 +158,7 @@ TOL_STFT = 1e-5  # largest STFT error allowed, as a share of the largest magnitu
 TRAIN_BATCH = 8  # micro-batch of the stage-2 steps
 TRAIN_STEPS = 10  # timed optimizer steps, after one warm-up
 VAL_BATCH = 2  # batch of the validation step and of the agreement check
+STAGE3_BATCH = 2  # the stage-3 recipe's micro-batch (recipes/train.sh)
 TRAIN_LR = 1e-4  # constant: the default schedule's warm-up starts at 0
 HEUN_STEPS = 18
 TOL_TRAIN_LOSS = 0.05  # card (bf16, kernels) against CPU fp32, relative
@@ -691,16 +710,27 @@ FIT_CUTS = ["--num_train_epochs: --max_train_steps 2 (stage 1, stage 2), 3 (resu
             "--unet_model_config omitted: PipelineConfig() is its light UNet"]
 
 
-def fit_expected(stage, use_edm, accum, steps, val_batches, n=HEUN_STEPS, remat=True):
+# per micro-batch, the decodes each loss type makes: (VAE decoder passes,
+# vocoder passes); clap decodes the prediction to a waveform, mel both latents
+# to mels, stft both to waveforms
+LOSS_DECODES = {"mse": (0, 0), "clap": (1, 1), "mel": (2, 0), "stft": (2, 2)}
+
+
+def fit_expected(stage, use_edm, accum, steps, val_batches, n=HEUN_STEPS, remat=True,
+                 loss="mse", ftvae=False, fused_levels=3):
     """The launches a training CLI run implies. Per micro-batch: the mel
     frontend (K4) and the VAE encoder's mid-block attention (K2) once; 16 K1
     launches per UNet query: stage 1 the CFG teacher and the student; stage
     2 the teacher's interval (2 queries with Heun, 1 with DDIM), the target,
     the student, and the student again when its forward is recomputed in the
-    backward (the backward itself is the plain version's). Per validation
-    batch: K4 and K2 once; stage 1 the teacher and the student; stage 2 the
-    teacher over the whole schedule (Heun 2 (n - 1) + 1 queries, DDIM n) and
-    the target twice."""
+    backward (the backward itself is the plain version's); the loss's
+    decodes (LOSS_DECODES): K2 once per VAE decoder pass, K3 once per fused
+    vocoder level per vocoder pass (their backwards are the plain versions').
+    Per validation batch: K4 and K2 once, and with FTVAE K4 and K2 again
+    (the ground truth's mel and posterior mode) and K2 for the trainable
+    decoder; stage 1 the teacher and the student; stage 2 the teacher over
+    the whole schedule (Heun 2 (n - 1) + 1 queries, DDIM n) and the target
+    twice."""
     if stage == 1:
         per_micro, per_val = 2, 2
     elif use_edm:
@@ -708,14 +738,93 @@ def fit_expected(stage, use_edm, accum, steps, val_batches, n=HEUN_STEPS, remat=
     else:
         per_micro, per_val = 3 + remat, n + 2
     micro = steps * accum
+    decoder, vocoder = LOSS_DECODES[loss]
     return {"flash_mha_packed": 16 * (micro * per_micro + val_batches * per_val),
-            "flash_self_attention": micro + val_batches, "fused_mrf_level": 0,
-            "stft_magnitude": micro + val_batches, "dilated_conv1d": 0}
+            "flash_self_attention": micro * (1 + decoder) + val_batches * (1 + 2 * ftvae),
+            "fused_mrf_level": micro * vocoder * fused_levels,
+            "stft_magnitude": micro + val_batches * (1 + ftvae), "dilated_conv1d": 0}
 
 
 def _du_gb(path):
     return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path)
                for f in fs) / 1e9
+
+
+class CliRuns:
+    """Runs of the training CLI (consistencytta_torch.cli.train) in this
+    process, each with the launch counters set to 0 before and read after:
+    `run` prepares (the pipeline, the loaders, the state, a resume) and runs
+    one invocation, prints its line and checks its launches against the
+    expected counts and its losses for finiteness; `lines` keeps the lines
+    and `totals` sums the launches."""
+
+    def __init__(self, torch, phase, common, reset_counters, read_counters):
+        self.torch, self.phase, self.common = torch, phase, common
+        self.reset_counters, self.read_counters = reset_counters, read_counters
+        self.lines, self.totals = [], {}
+
+    def run(self, name, argv, expected, checked=None):
+        import numpy as np
+
+        from consistencytta_torch.cli import train
+
+        torch = self.torch
+        output_dir = argv[argv.index("--output_dir") + 1]
+        summary = os.path.join(output_dir, "summary.jsonl")
+        n_before = len(open(summary).readlines()) if os.path.exists(summary) else 0
+        self.reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = train.prepare(self.common + argv)
+        torch.cuda.synchronize()
+        prepare_s = time.perf_counter() - t0
+        extra = checked(r) if checked else {}
+        # each step's seconds, the first (a fresh pipeline's) apart: the loop
+        # keeps only their sum
+        step_fn, each = r.step_fn, []
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            metrics = step_fn(*args, **kwargs)
+            float(metrics["loss"])
+            each.append(time.perf_counter() - t0)
+            return metrics
+
+        r.step_fn = timed
+        t0 = time.perf_counter()
+        train.run(r)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = self.read_counters()
+        with open(summary) as f:
+            records = [json.loads(x) for x in f.readlines()[n_before:]]
+        epochs = [x for x in records if "epoch_seconds" in x]
+        steps = sum(x["steps"] for x in epochs)
+        ckpts = sorted(d for d in os.listdir(output_dir)
+                       if os.path.isdir(os.path.join(output_dir, d)))
+        line = {
+            "phase": self.phase, "run": name, "argv": " ".join(argv), "steps": steps,
+            "launches": counts, "expected_launches": expected,
+            "prepare_seconds": prepare_s, "run_seconds": run_s,
+            "seconds_per_optimizer_step": sum(x["step_seconds"] for x in epochs) / steps,
+            "step_seconds_each": each,
+            "loader_seconds_per_step": sum(x["loader_seconds"] for x in epochs) / steps,
+            "validation_seconds": sum(x.get("validation_seconds", 0.0) for x in epochs),
+            "checkpoint_save_seconds": sum(x["checkpoint_seconds"] for x in epochs),
+            "checkpoints": {d: _du_gb(os.path.join(output_dir, d)) for d in ckpts},
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "losses": {k: v for k, v in epochs[-1].items() if "loss" in k},
+            "resume_seconds": r.resume_seconds, **extra,
+        }
+        self.lines.append(line)
+        emit(line)
+        if counts != expected:
+            fail(f"{self.phase} {name}: launch counts {counts} != expected {expected}")
+        if not all(np.isfinite(v) for v in line["losses"].values()):
+            fail(f"{self.phase} {name}: non-finite losses {line['losses']}")
+        for k, v in counts.items():
+            self.totals[k] = self.totals.get(k, 0) + v
+        return r
 
 
 def fit_phase(torch, config, fit_dir, reset_counters, read_counters, fused_levels):
@@ -772,67 +881,9 @@ def fit_phase(torch, config, fit_dir, reset_counters, read_counters, fused_level
               "--validation_file", manifests["valid"], "--test_file", manifests["valid"],
               "--tango_model", tango, "--vae_checkpoint", vae, "--seed", "0"]
     out = {k: os.path.join(fit_dir, k) for k in ("stage1", "stage2", "ddim", "lora", "gen")}
-    lines, totals = [], {}
 
-    def fit_run(name, argv, expected, checked=None):
-        """prepare (the pipeline, the loaders, the state, a resume) and run
-        one CLI invocation with the counters set to 0 before and read after."""
-        output_dir = argv[argv.index("--output_dir") + 1]
-        summary = os.path.join(output_dir, "summary.jsonl")
-        n_before = len(open(summary).readlines()) if os.path.exists(summary) else 0
-        reset_counters()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        r = train.prepare(common + argv)
-        torch.cuda.synchronize()
-        prepare_s = time.perf_counter() - t0
-        extra = checked(r) if checked else {}
-        # each step's seconds, the first (a fresh pipeline's) apart: the loop
-        # keeps only their sum
-        step_fn, each = r.step_fn, []
-
-        def timed(*args, **kwargs):
-            t0 = time.perf_counter()
-            metrics = step_fn(*args, **kwargs)
-            float(metrics["loss"])
-            each.append(time.perf_counter() - t0)
-            return metrics
-
-        r.step_fn = timed
-        t0 = time.perf_counter()
-        train.run(r)
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        counts = read_counters()
-        with open(summary) as f:
-            records = [json.loads(x) for x in f.readlines()[n_before:]]
-        epochs = [x for x in records if "epoch_seconds" in x]
-        steps = sum(x["steps"] for x in epochs)
-        ckpts = sorted(d for d in os.listdir(output_dir)
-                       if os.path.isdir(os.path.join(output_dir, d)))
-        line = {
-            "phase": "fit", "run": name, "argv": " ".join(argv), "steps": steps,
-            "launches": counts, "expected_launches": expected,
-            "prepare_seconds": prepare_s, "run_seconds": run_s,
-            "seconds_per_optimizer_step": sum(x["step_seconds"] for x in epochs) / steps,
-            "step_seconds_each": each,
-            "loader_seconds_per_step": sum(x["loader_seconds"] for x in epochs) / steps,
-            "validation_seconds": sum(x.get("validation_seconds", 0.0) for x in epochs),
-            "checkpoint_save_seconds": sum(x["checkpoint_seconds"] for x in epochs),
-            "checkpoints": {d: _du_gb(os.path.join(output_dir, d)) for d in ckpts},
-            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
-            "losses": {k: v for k, v in epochs[-1].items() if "loss" in k},
-            "resume_seconds": r.resume_seconds, **extra,
-        }
-        lines.append(line)
-        emit(line)
-        if counts != expected:
-            fail(f"fit {name}: launch counts {counts} != expected {expected}")
-        if not all(np.isfinite(v) for v in line["losses"].values()):
-            fail(f"fit {name}: non-finite losses {line['losses']}")
-        for k, v in counts.items():
-            totals[k] = totals.get(k, 0) + v
-        return r
+    runs = CliRuns(torch, "fit", common, reset_counters, read_counters)
+    lines, totals, fit_run = runs.lines, runs.totals, runs.run
 
     # 1. stage 1, best tracked on val_loss: 2 steps of 2 micro-batches of 4
     # (3 originals and their mixes), one validation batch of 6
@@ -968,29 +1019,10 @@ def fit_phase(torch, config, fit_dir, reset_counters, read_counters, fused_level
     test = os.path.join(fit_dir, "test.jsonl")
     with open(manifests["valid"]) as f, open(test, "w") as g:
         g.writelines(f.readlines()[:4])
-    reset_counters()
-    t0 = time.perf_counter()
-    res = inference.main(["--model", best2, "--original_args",
-                          os.path.join(out["stage2"], "summary.jsonl"), "--use_edm",
-                          "--use_ema", "--vae_checkpoint", vae, "--test_file", test,
-                          "--batch_size", "4", "--skip_eval", "--output_dir", out["gen"]])
-    torch.cuda.synchronize()
-    infer_s = time.perf_counter() - t0
-    infer_counts = read_counters()
-    expected = {"flash_mha_packed": 16, "flash_self_attention": 1,
-                "fused_mrf_level": fused_levels, "stft_magnitude": 1, "dilated_conv1d": 0}
-    wavs = sorted(n for n in os.listdir(out["gen"]) if n.endswith(".wav"))
-    for n in wavs:
-        sr, data = wavfile.read(os.path.join(out["gen"], n))
-        if sr != 16000 or data.shape != (160000,) or not np.abs(data).max() > 0:
-            fail(f"fit inference: {n}: {sr} Hz, {data.shape}, peak {np.abs(data).max()}")
-    line = {"phase": "fit", "run": "inference", "rows": res["num_clips"], "wavs": len(wavs),
-            "wall_seconds": infer_s, "launches": infer_counts, "expected_launches": expected,
-            **{k: v for k, v in res.items() if k.endswith("seconds")}}
+    line, infer_counts = inference_run(torch, "fit", best2, os.path.join(out["stage2"],
+                                       "summary.jsonl"), vae, test, out["gen"], fused_levels,
+                                       reset_counters, read_counters)
     lines.append(line)
-    emit(line)
-    if infer_counts != expected or len(wavs) != 4:
-        fail(f"fit inference: {len(wavs)} wavs, launch counts {infer_counts} != {expected}")
     summary = {"phase": "fit", "config": "PipelineConfig() light UNet + teacher, T5-large, "
                "bf16 frozen / fp32 trained; reference-format TANGO teacher and AudioLDM VAE "
                "of seeded random weights; hash tokenizer", "cuts": FIT_CUTS,
@@ -998,7 +1030,259 @@ def fit_phase(torch, config, fit_dir, reset_counters, read_counters, fused_level
                "phase_seconds": time.perf_counter() - t_phase, "launches_training_runs": totals,
                "launches_inference": infer_counts}
     emit(summary)
-    return lines, totals, infer_counts
+    ctx = {"common": common, "tango": tango, "vae": vae, "stage2_best": best2,
+           "train": manifests["train"], "valid": manifests["valid"], "test": test}
+    return lines, totals, infer_counts, ctx
+
+
+def inference_run(torch, phase, model, replay, vae, test, out_dir, fused_levels,
+                  reset_counters, read_counters):
+    """The inference CLI (`--use_edm --use_ema`, the run's config replay) on
+    a checkpoint, 4 rows in one batch: one student query (16 K1 launches),
+    one decode (K2 once, K3 once per fused level), the batch's eval mels (K4
+    at N = 512 once); 4 non-silent 10-s wavs. Returns its line and its
+    launches."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from consistencytta_torch.cli import inference
+
+    reset_counters()
+    t0 = time.perf_counter()
+    res = inference.main(["--model", model, "--original_args", replay, "--use_edm",
+                          "--use_ema", "--vae_checkpoint", vae, "--test_file", test,
+                          "--batch_size", "4", "--skip_eval", "--output_dir", out_dir])
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    counts = read_counters()
+    expected = {"flash_mha_packed": 16, "flash_self_attention": 1,
+                "fused_mrf_level": fused_levels, "stft_magnitude": 1, "dilated_conv1d": 0}
+    wavs = sorted(n for n in os.listdir(out_dir) if n.endswith(".wav"))
+    for n in wavs:
+        sr, data = wavfile.read(os.path.join(out_dir, n))
+        if sr != 16000 or data.shape != (160000,) or not np.abs(data).max() > 0:
+            fail(f"{phase} inference: {n}: {sr} Hz, {data.shape}, peak {np.abs(data).max()}")
+    line = {"phase": phase, "run": "inference", "rows": res["num_clips"], "wavs": len(wavs),
+            "wall_seconds": infer_s, "launches": counts, "expected_launches": expected,
+            **{k: v for k, v in res.items() if k.endswith("seconds")}}
+    emit(line)
+    if counts != expected or len(wavs) != 4:
+        fail(f"{phase} inference: {len(wavs)} wavs, launch counts {counts} != {expected}")
+    return line, counts
+
+
+STAGE3_VAL_CLIPS = 2
+# the stage-3 recipe's flags (recipes/train.sh), verbatim but for the cuts
+# listed on the phase's line
+STAGE3 = ["--stage", "2", "--augment", "--per_device_train_batch_size", str(STAGE3_BATCH),
+          "--gradient_accumulation_steps", "2", "--per_device_eval_batch_size", "2",
+          "--teacher_guidance_scale", "-1", "--target_ema_decay", ".95", "--ema_decay", ".999",
+          "--learning_rate", "1e-6", "--adam_weight_decay", "1e-4", "--use_edm", "--use_bf16",
+          "--checkpointing_steps", "best", "--num_diffusion_steps", "18",
+          "--num_warmup_steps", "250", "--snr_gamma", "5"]
+STAGE3_CUTS = ["--num_train_epochs: --max_train_steps 2 (clap, FTVAE), 3 (the FTVAE resume), "
+               "1 (mel, stft, LoRA)", "--gradient_accumulation_steps 15 -> 2",
+               f"validation: {STAGE3_VAL_CLIPS} clips, one batch of 2",
+               f"{FIT_TRAIN_CLIPS} training clips (synthetic, the fit phase's)",
+               "--unet_model_config omitted: PipelineConfig() is its light UNet",
+               "CLAP towers: seeded random weights at published widths (HTSAT-base, "
+               "RoBERTa-base), hash CLAP tokenizer",
+               "checkpoint written: FTVAE's step_2 only"]
+TOL_STAGE3_LOSS = 0.05  # card (bf16, kernels) against CPU fp32, relative
+
+
+def stage3_phase(torch, config, ctx, stage3_dir, reset_counters, read_counters, fused_levels):
+    """Stage 3 through the training CLI in this process at full width, from
+    the fit phase's stage-2 `best` as --stage1_model (recipes/train.sh) and
+    its TANGO and VAE files, with seeded random CLAP towers at published
+    widths: --loss_type clap (2 steps), with a card-vs-CPU forward loss at
+    batch 2 and the parts of one micro-batch;
+    --finetune_vae (2 steps, `step_2`) and its resume, checked bit for bit
+    with the decoder pair and its EMA, for one step; one step each of
+    --loss_type mel and stft and of --use_lora with clap; the inference CLI
+    on the FTVAE `step_2` through its EMA decoder. Returns the phase's lines,
+    the launches of its training runs and of its inference run."""
+    import numpy as np
+
+    from consistencytta_torch.cli import train
+    from consistencytta_torch.evaluation.clap_model import load_clap_towers
+    from consistencytta_torch.io import checkpoints
+    from consistencytta_torch.models.pipeline import STUDENT_ROLES, Pipeline
+    from consistencytta_torch.tools.random_eval_checkpoints import write_eval_checkpoints
+    from consistencytta_torch.training import step as tstep
+    from consistencytta_torch.training.clap_loss import build_clap_loss
+    from consistencytta_torch.training.data import to_device
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    clap = write_eval_checkpoints(stage3_dir, EVAL_SEED, which=("clap",))["clap"]
+    valid = os.path.join(stage3_dir, "valid.jsonl")
+    with open(ctx["valid"]) as f, open(valid, "w") as g:
+        g.writelines(f.readlines()[:STAGE3_VAL_CLIPS])
+    setup_s = time.perf_counter() - t0
+    common = [a if a != ctx["valid"] else valid for a in ctx["common"]]
+    runs = CliRuns(torch, "stage3", common, reset_counters, read_counters)
+    out = {k: os.path.join(stage3_dir, k) for k in ("clap", "ftvae", "mel", "stft", "lora", "gen")}
+    base = STAGE3 + ["--stage1_model", ctx["stage2_best"], "--clap_checkpoint", clap]
+    once = ["--max_train_steps", "1", "--checkpointing_steps", "none", "--save_every", "1000"]
+    expect = lambda steps, **kw: fit_expected(2, True, 2, steps, 1, fused_levels=fused_levels,
+                                              **kw)
+
+    # 1. --loss_type clap: 2 steps, writing nothing (FTVAE's step_2 measures a
+    # stage-3 checkpoint); a batch-2 forward loss with given draws against
+    # fp32 on the CPU; the time and peak memory of the parts of one micro-batch
+    r = runs.run("clap", base + ["--loss_type", "clap", "--max_train_steps", "2",
+                                 "--checkpointing_steps", "none", "--save_every", "1000",
+                                 "--output_dir", out["clap"]], expect(2, loss="clap"))
+    p = r.pipeline
+    sched = train.schedule_from_args(r.args, config.scheduler)
+    cfg = train.consistency_step_config_from_args(r.args)
+    batch = next(iter(r.make_eval_loader()))
+    micro = to_device({k: v[:2] for k, v in batch.items() if k != "captions"}, "cuda")
+    cpu_gen = torch.Generator().manual_seed(8)
+    draws = {"posterior_noise": torch.randn(p.latent_shape(2), generator=cpu_gen),
+             "eps": torch.randn(p.latent_shape(2), generator=cpu_gen),
+             "u": torch.tensor([3, 12]), "w": torch.tensor([0.3, 0.8])}
+
+    def forward_loss(pipe, loss_fn, m):
+        with torch.no_grad():
+            pred, target, snr = tstep.consistency_forward(
+                pipe, sched, cfg, pipe.unets["student"], pipe.unets["student_target"], m,
+                draws=draws)
+            inst = loss_fn(pred, target, m) * tstep.min_snr_weights_stage2(snr, cfg.snr_gamma)
+        return inst.mean().item(), pred.float().cpu(), target.float().cpu()
+
+    clap_loss = build_clap_loss(p, *load_clap_towers(clap, "cuda"))
+    got = forward_loss(p, clap_loss, micro)
+
+    # the parts of one micro-batch of the step, as the CLI's step runs it
+    # (the student's forward recomputed in its backward), timed apart:
+    # the forward (teacher interval, target, student), the loss's forward
+    # (decode, HTSAT on the prediction and the ground truth, RoBERTa), the
+    # backward of the decode chain and HTSAT alone (from a detached
+    # prediction), the whole backward; peak memory after each
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out_ = fn()
+        torch.cuda.synchronize()
+        return out_, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+    r.state.optimizer.zero_grad(set_to_none=True)
+    student = tstep.role_unet(r.state, r.state.student)
+    target_net = tstep.role_unet(r.state, r.state.student_target)
+    (pred, target, snr), fwd_s, fwd_gb = timed(lambda: tstep.consistency_forward(
+        p, sched, cfg, student, target_net, micro, draws=draws))
+    leaf = pred.detach().requires_grad_()
+    inst, loss_fwd_s, loss_fwd_gb = timed(lambda: clap_loss(leaf, target, micro))
+    _, chain_bwd_s, chain_bwd_gb = timed(lambda: inst.mean().backward())
+    inst = clap_loss(pred, target, micro) * tstep.min_snr_weights_stage2(snr, cfg.snr_gamma)
+    _, bwd_s, bwd_gb = timed(lambda: inst.mean().backward())
+    r.state.optimizer.zero_grad(set_to_none=True)
+    parts = {"forward_seconds": fwd_s, "forward_peak_gb": fwd_gb,
+             "loss_forward_seconds": loss_fwd_s, "loss_forward_peak_gb": loss_fwd_gb,
+             "decode_and_htsat_backward_seconds": chain_bwd_s,
+             "decode_and_htsat_backward_peak_gb": chain_bwd_gb,
+             "whole_backward_seconds": bwd_s, "whole_backward_peak_gb": bwd_gb}
+    del pred, target, snr, leaf, inst, student, target_net
+
+    cpu = lambda m: copy.deepcopy(m).to("cpu", torch.float32)
+    ref = Pipeline(config, {k: cpu(p.unets[k]) for k in ("student", "student_target", "teacher")},
+                   cpu(p.vae), cpu(p.vocoder), cpu(p.t5), torch.device("cpu"), torch.float32)
+    t0 = time.perf_counter()
+    want = forward_loss(ref, build_clap_loss(ref, *load_clap_towers(clap, "cpu")),
+                        {k: v.cpu() for k, v in micro.items()})
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    reference = {"loss": got[0], "cpu_fp32_loss": want[0],
+                 "loss_rel_err": abs(got[0] - want[0]) / abs(want[0]),
+                 "tol_loss_rel_err": TOL_STAGE3_LOSS, "student_rel_l2": rel(got[1], want[1]),
+                 "target_rel_l2": rel(got[2], want[2]), "tol_rel_l2": 0.1,
+                 "cpu_fp32_seconds": time.perf_counter() - t0}
+    runs.lines[-1].update(reference=reference, parts=parts)
+    emit({"phase": "stage3", "run": "clap", "reference": reference, "parts": parts})
+    if not reference["loss_rel_err"] <= TOL_STAGE3_LOSS \
+            or not max(reference["student_rel_l2"], reference["target_rel_l2"]) <= 0.1:
+        fail(f"stage3 clap: the forward on the card differs from fp32 on the CPU: {reference}")
+    del r, p, ref, micro, batch, clap_loss
+    torch.cuda.empty_cache()
+
+    # 2. --finetune_vae: 2 steps, step_2 written; the decoder pair trained in
+    # float32 with float32 gradients; its resume checked bit for bit
+    ftvae_argv = base + ["--loss_type", "clap", "--finetune_vae"]
+    r = runs.run("ftvae", ftvae_argv + ["--max_train_steps", "2", "--checkpointing_steps", "2",
+                                        "--output_dir", out["ftvae"]],
+                 expect(2, loss="clap", ftvae=True))
+    dec = r.state.vae_dec
+    if any(q.dtype != torch.float32 for q in dec.parameters()) \
+            or any(q.data_ptr() == v.data_ptr() for q in dec.parameters()
+                   for v in r.pipeline.vae.parameters()):
+        fail("stage3 ftvae: the trainable decoder is not a float32 copy of its own")
+    del r, dec
+    torch.cuda.empty_cache()
+    step2 = os.path.join(out["ftvae"], "step_2")
+
+    def check_resume(r):
+        t0 = time.perf_counter()
+        load = lambda f: torch.load(os.path.join(step2, f), map_location="cpu", mmap=True,
+                                    weights_only=True)
+        model, opt = load(checkpoints.MODEL_FILE), load(checkpoints.OPTIMIZER_FILE)
+        trained, ema = checkpoints.extract_ftvae_decoders(model)
+        saved = {**{f"{role}.{k}": model[f"{role}_unet.{k}"] for role in STUDENT_ROLES
+                    for k in getattr(r.state, role).state_dict()},
+                 **{f"vae_dec.{k}": v for k, v in trained.items()},
+                 **{f"vae_dec_ema.{k}": v for k, v in ema.items()}}
+        held = {f"{role}.{k}": v for role in (*STUDENT_ROLES, "vae_dec", "vae_dec_ema")
+                for k, v in getattr(r.state, role).state_dict().items()}
+        unequal = [k for k, v in held.items() if k not in saved
+                   or not torch.equal(v.cpu(), saved[k])]
+        n = len(held)
+        for i, st in r.state.optimizer.state_dict()["state"].items():
+            for k, v in st.items():
+                n += 1
+                if not torch.equal(torch.as_tensor(v).cpu(), torch.as_tensor(opt["state"][i][k])):
+                    unequal.append(f"optimizer.{i}.{k}")
+        if unequal or r.state.step != 2 or len(held) != len(saved):
+            fail(f"stage3 ftvae resume: restored state differs from step_2: {unequal[:5]}, "
+                 f"step {r.state.step}, {len(held)} held, {len(saved)} saved")
+        return {"restored_tensors_equal": n, "restored_step": r.state.step,
+                "resume_check_seconds": time.perf_counter() - t0}
+
+    r = runs.run("ftvae_resume", ftvae_argv + [
+        "--max_train_steps", "3", "--checkpointing_steps", "none", "--save_every", "1000",
+        "--resume_from_checkpoint", step2, "--output_dir", out["ftvae"]],
+                 expect(1, loss="clap", ftvae=True), check_resume)
+    if r.state.step != 3 or runs.lines[-1]["steps"] != 1:
+        fail(f"stage3 ftvae resume: step {r.state.step} after {runs.lines[-1]['steps']} steps")
+    del r
+    torch.cuda.empty_cache()
+
+    # 3. one step each of the mel and STFT losses, and of LoRA with clap
+    for name, argv, kw in (("mel", ["--loss_type", "mel"], {"loss": "mel"}),
+                           ("stft", ["--loss_type", "stft"], {"loss": "stft"}),
+                           ("lora", ["--loss_type", "clap", "--use_lora"], {"loss": "clap"})):
+        runs.run(name, base + argv + once + ["--output_dir", out[name]], expect(1, **kw))
+        torch.cuda.empty_cache()
+
+    # 4. the inference CLI on the FTVAE step_2 through its EMA decoder
+    line, infer_counts = inference_run(torch, "stage3", step2,
+                                       os.path.join(out["ftvae"], "summary.jsonl"), ctx["vae"],
+                                       ctx["test"], out["gen"], fused_levels, reset_counters,
+                                       read_counters)
+    gen = Pipeline.create(config, dtype=torch.bfloat16, device="cuda", seed=5)
+    loaded = checkpoints.load_frozen_and_roles(gen, model_path=step2, vae_checkpoint=ctx["vae"])
+    if not {"vae decoder", "vae_ema"} <= set(loaded):
+        fail(f"stage3 inference: the FTVAE checkpoint gave {sorted(loaded)}")
+    del gen
+    runs.lines.append(line)
+    summary = {"phase": "stage3", "config": "PipelineConfig() light UNet + teacher, T5-large, "
+               "bf16 frozen / fp32 trained; the fit phase's stage-2 best as --stage1_model; "
+               "CLAP HTSAT-base + RoBERTa-base of seeded random weights (fp32)",
+               "cuts": STAGE3_CUTS, "setup_seconds": setup_s,
+               "phase_seconds": time.perf_counter() - t_phase,
+               "launches_training_runs": runs.totals, "launches_inference": infer_counts}
+    emit(summary)
+    return runs.lines, runs.totals, infer_counts
 
 
 def main() -> None:
@@ -1058,6 +1342,7 @@ def main() -> None:
     # -- kernels against their plain versions ---------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
+    grad_errors = {}
 
     def compare(got, want):
         """(max abs error, largest |want|, relative L2 error)."""
@@ -1110,6 +1395,24 @@ def main() -> None:
                 r[key] += weight * v
             r["library_ms"] = None if lib_ms is None or r["library_ms"] is None \
                 else r["library_ms"] + weight * lib_ms
+
+    def gradient_check(name, shape, got, want, tol_max, mutants, check):
+        """A kernel's gradient against autograd through its plain version,
+        with the tolerance of its forward check; each planted fault must fail
+        it. Its error goes into the kernel's max_abs_err."""
+        err, scale, l2 = compare(got, want)
+        caught = {f: not within(bad, want, tol_max) for f, bad in mutants.items()}
+        ok = within(got, want, tol_max) and got.dtype == want.dtype
+        emit({"phase": "kernel", "name": name, "check": check, "shape": shape,
+              "max_abs_err": err, "max_abs_plain": scale, "tol_max_abs": tol_max * scale,
+              "rel_l2": l2, "tol_rel_l2": TOL_L2, "dtype": str(got.dtype), "ok": ok,
+              "mutants_caught": caught})
+        if not ok:
+            fail(f"{name} {check}: max abs err {err} (tol {tol_max * scale}), rel L2 {l2}, "
+                 f"dtype {got.dtype} (plain {want.dtype})")
+        if not all(caught.values()):
+            fail(f"{name} {check}: the tolerance passes planted faults {caught}")
+        grad_errors[name] = max(grad_errors.get(name, 0.0), err)
 
     def launch(kernel, call):
         """call() once, checking that it launched `kernel` exactly once."""
@@ -1215,16 +1518,8 @@ def main() -> None:
         "scale_of_width_64": qkv_grad(att.flash_mha_packed_plain, 64 ** -0.5, False),
         "dk_dv_exchanged": torch.cat([dq, dv, dk], dim=-1),
     }
-    err, scale, l2 = compare(got, want)
-    caught = {f: not within(bad, want, 2e-2) for f, bad in grad_mutants.items()}
-    emit({"phase": "kernel", "name": "flash_mha_packed", "check": "gradient under autocast",
-          "shape": f"B={b} S={s} H={h} d={HEAD_WIDTH} (64 padded)", "max_abs_err": err,
-          "max_abs_plain": scale, "tol_max_abs": 2e-2 * scale, "rel_l2": l2,
-          "tol_rel_l2": TOL_L2, "ok": within(got, want, 2e-2), "mutants_caught": caught})
-    if not within(got, want, 2e-2):
-        fail(f"flash_mha_packed gradient: max abs err {err} (tol {2e-2 * scale}), rel L2 {l2}")
-    if not all(caught.values()):
-        fail(f"flash_mha_packed gradient: the tolerance passes planted faults {caught}")
+    gradient_check("flash_mha_packed", f"B={b} S={s} H={h} d={HEAD_WIDTH} (64 padded)",
+                   got, want, 2e-2, grad_mutants, "gradient under autocast")
     del qkv, g_out, got, want, dq, dk, dv, grad_mutants
     # K2: the VAE mid-block attention, one launch per decode chunk (generate)
     # and one per encoded micro-batch (train, validation)
@@ -1248,6 +1543,29 @@ def main() -> None:
                4.0 * b * 4096 * 4096 * 512, 4.0 * b * 4096 * 512 * 2, 1,
                weight=1 if b == BATCH else 0, path=path, **host)
         del qkv, q, k, v, got, want, mutants
+    # K2's gradient as the stage-3 decoder's backward takes it: the VAE
+    # mid-block under autocast, q, k and v slices of one projection that
+    # requires grad, at the stage-3 micro-batch of 2; held against autograd
+    # through the plain version outside autocast. The faults: the plain
+    # gradient at 1.1 x the scale, and with dk and dv exchanged.
+    b = STAGE3_BATCH
+    qkv = torch.randn(b, 4096, 3 * 512, device=dev, generator=gen).bfloat16()
+    g_out = torch.randn(b, 4096, 512, device=dev, generator=gen).bfloat16()
+
+    def attn_grad(fn, scale, autocast):
+        leaf = qkv.clone().requires_grad_()
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=autocast):
+            out = fn(*leaf.split(512, dim=-1), scale)
+        return torch.autograd.grad(out, leaf, g_out)[0]
+
+    got = launch(att.flash_self_attention,
+                 lambda: attn_grad(att.flash_self_attention, 512 ** -0.5, True))
+    want = attn_grad(att.attention_plain, 512 ** -0.5, False)
+    dq, dk, dv = want.split(512, dim=-1)
+    gradient_check("flash_self_attention", f"B={b} S=4096 D=512", got, want, 2e-2, {
+        "scale_x1.1": attn_grad(att.attention_plain, 1.1 * 512 ** -0.5, False),
+        "dk_dv_exchanged": torch.cat([dq, dv, dk], dim=-1)}, "gradient under autocast")
+    del qkv, g_out, got, want, dq, dk, dv
     # K3: the vocoder's MRF levels; the fused levels (C <= FUSE_MAX_CHANNELS)
     # once per generate call, the wider ones (C = 256, 512) measured beside
     # the plain chain they run on. The plain chain has two formulations of its
@@ -1286,6 +1604,29 @@ def main() -> None:
                smem_bytes=mrf.smem_bytes(c, rows, in_smem),
                weight_l2_gb=mrf.weight_l2_bytes(b, c, length, ks, ds) / 1e9)
         del x, ws, bs, got, want, tile, unzeroed, mutants
+    # K3's gradient with respect to x, as the stage-3 losses' backward takes
+    # it through the frozen vocoder (weights without gradient), at the C = 128
+    # level of a stage-3 micro-batch; held against autograd through the plain
+    # level. The faults: the plain gradient with the slope 0.2 in place of
+    # 0.1, and with the first ResBlock's dilations reversed.
+    b, c, length = STAGE3_BATCH, 128, 40968
+    x = (torch.randn(b, c, length, device=dev, generator=gen) * 0.5).bfloat16()
+    ws = [(torch.randn(c, c, kk, device=dev, generator=gen) / (c * kk) ** 0.5).bfloat16()
+          for kk in ks for _ in range(6)]
+    bs = [(torch.randn(c, device=dev, generator=gen) * 0.05).bfloat16() for _ in range(18)]
+    g_out = torch.randn(b, c, length, device=dev, generator=gen).bfloat16()
+
+    def mrf_grad(fn, dil=ds, slope=0.1):
+        leaf = x.clone().requires_grad_()
+        return torch.autograd.grad(fn(leaf, ws, bs, ks, dil, slope), leaf, g_out)[0]
+
+    got = launch(mrf.fused_mrf_level, lambda: mrf_grad(mrf.fused_mrf_level))
+    want = mrf_grad(mrf.mrf_level_plain)
+    gradient_check("fused_mrf_level", f"B={b} C={c} L={length}", got, want, 3e-2, {
+        "slope_0.2": mrf_grad(mrf.mrf_level_plain, slope=0.2),
+        "dilations_reversed": mrf_grad(mrf.mrf_level_plain, dil=((5, 3, 1),) + ds[1:])},
+        "gradient wrt x")
+    del x, ws, bs, g_out, got, want
     # K4: the mel frontend's STFT magnitude on 10-s clips, float32 in and out;
     # once per train micro-batch (B = 8). The plain version is one float32
     # matmul with TF32 off; the faults are that product in one low-precision
@@ -1719,8 +2060,14 @@ def main() -> None:
     fit_dir = os.path.join(root, "outputs", f"chip_smoke_fit_{os.getpid()}")
     os.makedirs(fit_dir)
     try:
-        _, fit_train, fit_infer = fit_phase(torch, config, fit_dir, reset_counters,
-                                            read_counters, fused_levels)
+        _, fit_train, fit_infer, fit_ctx = fit_phase(torch, config, fit_dir, reset_counters,
+                                                     read_counters, fused_levels)
+        torch.cuda.empty_cache()
+        # -- stage3: the CLAP fine-tune from the fit phase's stage-2 best ----------
+        stage3_dir = os.path.join(fit_dir, "stage3")
+        os.makedirs(stage3_dir)
+        _, s3_train, s3_infer = stage3_phase(torch, config, fit_ctx, stage3_dir, reset_counters,
+                                             read_counters, fused_levels)
     finally:
         shutil.rmtree(fit_dir, ignore_errors=True)
 
@@ -1752,7 +2099,8 @@ def main() -> None:
             "train": f"the train run's {n_train_steps} steps and one validation",
             "serve": "the serve run's two CLI runs (the second evaluating)",
             "eval": "the eval run's evaluate_existing",
-            "fit": "the fit run's five training CLI runs and its inference CLI run"}
+            "fit": "the fit run's five training CLI runs and its inference CLI run",
+            "stage3": "the stage3 run's six training CLI runs and its inference CLI run"}
     kernels = []
     for name, (src, rep) in sources.items():
         r = results[name]
@@ -1760,16 +2108,20 @@ def main() -> None:
         counter = "stft_magnitude" if name.startswith("stft") else name
         paths = {"generate": launches[counter], "train": train_launches[counter],
                  "serve": serve_launches[counter], "eval": eval_launches[counter],
-                 "fit": fit_train[counter] + fit_infer[counter]}
+                 "fit": fit_train[counter] + fit_infer[counter],
+                 "stage3": s3_train[counter] + s3_infer[counter]}
         if counter == "stft_magnitude":
             # training runs take N = 1024, the inference CLI's eval mels N = 512
             n512 = name != counter
-            paths = {k: v for k, v in paths.items() if k == "fit" or (k in ("serve", "eval")) == n512}
+            paths = {k: v for k, v in paths.items()
+                     if k in ("fit", "stage3") or (k in ("serve", "eval")) == n512}
             paths["fit"] = fit_infer[counter] if n512 else fit_train[counter]
+            paths["stage3"] = s3_infer[counter] if n512 else s3_train[counter]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(paths.values()), **{f"launches_{k}": v for k, v in paths.items()},
             "max_abs_err": r["max_abs_err"],
+            **({"gradient_max_abs_err": grad_errors[name]} if name in grad_errors else {}),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": r["library_ms"],
             "per": per.get(name, f"times per generate call at batch {BATCH}")

@@ -11,20 +11,26 @@ is), plus `--device` (default: the card; "cpu" runs the kernels' plain
 versions). Stage 1 distils the CFG teacher into the guided student; stage
 2 distils it into the consistency student, along Heun intervals with
 `--use_edm`, else DDIM steps, optionally training rank-4 LoRA factors only
-(`--use_lora`). Each run appends its flags to `<output_dir>/summary.jsonl`
-(the replay the inference CLI reads), trains on one card with a global
-batch of per-device batch times accumulation steps, validates every epoch
-and writes checkpoint directories (`io/checkpoints.py`): `best`,
-`epoch_<n>`, `step_<n>`; `--resume_from_checkpoint` restores one.
+(`--use_lora`), with the latent MSE or the `mel` / `stft` losses
+(`--loss_type`). Stage 3 is stage 2 with `--loss_type clap` from a stage-2
+checkpoint as `--stage1_model`: the CLAP-score loss through the frozen
+towers of `--clap_checkpoint` (loaded first; a missing file raises before
+any work), with LoRA, or with the VAE decoder trained beside the student
+(`--finetune_vae`, which requires the clap loss and excludes LoRA). Each
+run appends its flags to `<output_dir>/summary.jsonl` (the replay the
+inference CLI reads), trains on one card with a global batch of per-device
+batch times accumulation steps, validates every epoch and writes checkpoint
+directories (`io/checkpoints.py`): `best`, `epoch_<n>`, `step_<n>`;
+`--resume_from_checkpoint` restores one.
 
-Refused before any work, with `NotImplementedError`: stage 3 (`--loss_type
-mel|stft|clap`, `--finetune_vae`; ROADMAP.md item 2f) and more than one
-device (`--num_devices` > 1, DDP with ZeRO-1; item 2d).
+Refused before any work, with `NotImplementedError`: more than one device
+(`--num_devices` > 1, DDP with ZeRO-1; ROADMAP.md item 2d).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -176,11 +182,6 @@ def check_args(args) -> None:
     combinations, before any work is done."""
     from consistencytta_torch.training.optim import SUPPORTED_LR_SCHEDULES
 
-    if args.loss_type != "mse" or args.finetune_vae:
-        raise NotImplementedError(
-            f"--loss_type {args.loss_type}{' --finetune_vae' if args.finetune_vae else ''}: "
-            "stage 3 (the mel, STFT and CLAP losses, FTVAE; needs --clap_checkpoint for "
-            "clap) is not ported yet (ROADMAP.md item 2f)")
     if args.num_devices is not None:
         if args.num_devices > 1:
             raise NotImplementedError(
@@ -197,6 +198,16 @@ def check_args(args) -> None:
             "schedule constants are built in (stabilityai/stable-diffusion-2-1)")
     if args.use_lora and args.stage == 1:
         raise ValueError("--use_lora applies to stage 2 only")
+    if args.use_lora and args.finetune_vae:
+        raise ValueError("--use_lora and --finetune_vae are exclusive")
+    # the reference's FTVAE model requires the CLAP loss
+    # (models/audio_consistency_model_ftvae.py:32); the JAX CLI ignores the
+    # flag without it, the port refuses
+    if args.finetune_vae and args.loss_type != "clap":
+        raise ValueError(f"--finetune_vae requires --loss_type clap, not {args.loss_type}")
+    if args.loss_type == "clap" and not os.path.exists(args.clap_checkpoint):
+        raise FileNotFoundError(
+            f"--loss_type clap needs --clap_checkpoint; {args.clap_checkpoint} does not exist")
     if args.lr_scheduler_type not in SUPPORTED_LR_SCHEDULES:
         raise ValueError(f"--lr_scheduler_type {args.lr_scheduler_type!r} is not supported; "
                          f"choose one of {SUPPORTED_LR_SCHEDULES}")
@@ -226,8 +237,12 @@ def prepare(argv=None) -> TrainRun:
     from consistencytta_torch.cli.common import append_config_replay, build_pipeline_config
     from consistencytta_torch.io.checkpoints import load_checkpoint, load_frozen_and_roles
     from consistencytta_torch.models.pipeline import Pipeline
-    from consistencytta_torch.text.tokenizer import load_tokenizer
+    from consistencytta_torch.text.tokenizer import load_clap_tokenizer, load_tokenizer
     from consistencytta_torch.training import step as tstep
+    from consistencytta_torch.training.clap_loss import build_clap_loss
+    from consistencytta_torch.training.ftvae import (
+        FTVAETrainState, build_ftvae_train_step, build_ftvae_validation_step,
+    )
     from consistencytta_torch.training.data import DataLoader, T2ADataset
     from consistencytta_torch.training.lora import (
         build_lora_consistency_train_step, init_lora_state,
@@ -243,6 +258,16 @@ def prepare(argv=None) -> TrainRun:
     append_config_replay(args.output_dir, args)
 
     seed = args.seed if args.seed is not None else 0
+    towers, clap_tokenizer = None, None
+    if args.loss_type == "clap":
+        # the towers sized from the checkpoint's shapes, the tokenizer bounded
+        # by the text tower's vocabulary (RoBERTa's where local, else the hash
+        # stand-in)
+        from consistencytta_torch.evaluation.clap_model import load_clap_towers
+
+        towers = load_clap_towers(args.clap_checkpoint, dev)
+        clap_tokenizer = load_clap_tokenizer(towers[1].text_branch.config.vocab_size)
+        print(f"loaded the CLAP towers from {args.clap_checkpoint}")
     config = build_pipeline_config(args)
     dtype = torch.bfloat16 if args.use_bf16 else torch.float32
     if args.use_lora:
@@ -271,11 +296,13 @@ def prepare(argv=None) -> TrainRun:
 
     def make_train_loader(epoch):
         return DataLoader(train_ds, tokenizer, global_batch, args.text_len,
-                          augment=args.augment, shuffle=True, seed=seed + epoch)
+                          augment=args.augment, shuffle=True, seed=seed + epoch,
+                          clap_tokenizer=clap_tokenizer)
 
     def make_eval_loader():
         return DataLoader(val_ds, tokenizer, args.per_device_eval_batch_size, args.text_len,
-                          augment=False, shuffle=False, seed=seed)
+                          augment=False, shuffle=False, seed=seed,
+                          clap_tokenizer=clap_tokenizer)
 
     steps_per_epoch = max(len(train_ds) // global_batch, 1)
     max_steps = args.max_train_steps or args.num_train_epochs * steps_per_epoch
@@ -288,14 +315,23 @@ def prepare(argv=None) -> TrainRun:
         state = tstep.TrainState.create(pipeline, opt_cfg, with_target=False)
     else:
         cfg = consistency_step_config_from_args(args)
+        clap_loss = None
+        if towers is not None:
+            # one clip length for the CLAP loss of every step
+            clip_seconds = min(10.0, config.segment_samples / config.sample_rate)
+            clap_loss = build_clap_loss(pipeline, *towers, clip_seconds=clip_seconds)
         # the 4-loss validation runs for both solvers; a LoRA state's target
         # is merged into the frozen base first (training/step.py:role_unet)
         validate_fn = tstep.build_validation_step(pipeline, sched, cfg)
         if args.use_lora:
-            step_fn = build_lora_consistency_train_step(pipeline, sched, cfg)
+            step_fn = build_lora_consistency_train_step(pipeline, sched, cfg, clap_loss)
             state = init_lora_state(pipeline, opt_cfg, seed=seed)
+        elif args.finetune_vae:
+            step_fn = build_ftvae_train_step(pipeline, sched, cfg, clap_loss)
+            validate_fn = build_ftvae_validation_step(pipeline, sched, cfg)
+            state = FTVAETrainState.create(pipeline, opt_cfg)
         else:
-            step_fn = tstep.build_consistency_train_step(pipeline, sched, cfg)
+            step_fn = tstep.build_consistency_train_step(pipeline, sched, cfg, clap_loss)
             state = tstep.TrainState.create(pipeline, opt_cfg)
 
     resume_seconds = None

@@ -26,10 +26,16 @@ directory per checkpoint (`best`, `epoch_<n>`, `step_<n>`):
                              reference's names (`teacher_unet.*`,
                              `student_unet.*`, `student_target_unet.*`,
                              `student_ema_unet.*`; a LoRA run's roles merged
-                             into its base) and the T5 encoder
-                             (`text_encoder.*`), each in its own dtype;
-  {dir}/optimizer.bin        the optimizer's state dict, plus a LoRA run's
-                             factors of every role (`lora_factors`);
+                             into its base), the T5 encoder
+                             (`text_encoder.*`) and, for a stage-3 FTVAE
+                             run, the trained decoder pair (`vae.decoder.*`,
+                             `vae.post_quant_conv.*`) and its EMA
+                             (`ema_vae_decoder.*`, `ema_vae_pqconv.*`), the
+                             reference's layout, each in its own dtype; no
+                             CLAP weights;
+  {dir}/optimizer.bin        the optimizer's state dict (an FTVAE run's
+                             holds the decoder's moments too), plus a LoRA
+                             run's factors of every role (`lora_factors`);
   {dir}/scheduler.bin        the LR schedule's state dict and the step count;
   {dir}/config.json          `PipelineConfig.to_dict()`.
 
@@ -317,9 +323,21 @@ def load_frozen_and_roles(pipeline, tango_model: Optional[str] = None,
 # -- training checkpoints ------------------------------------------------------
 
 
+def ftvae_state_dict(vae_dec: nn.Module, vae_dec_ema: nn.Module) -> StateDict:
+    """An FTVAE state's decoder pair and its EMA under the reference's keys
+    (models/audio_consistency_model_ftvae.py:69-91), which
+    `extract_ftvae_decoders` reads back."""
+    sd = {"vae." + k: v for k, v in vae_dec.state_dict().items()}
+    for k, v in vae_dec_ema.state_dict().items():
+        root, rest = k.split(".", 1)
+        sd[("ema_vae_decoder." if root == "decoder" else "ema_vae_pqconv.") + rest] = v
+    return sd
+
+
 def model_state_dict(state, pipeline=None) -> StateDict:
     """pytorch_model_2.bin's tensors: the state's roles (a LoRA state's
-    merged into its base) and, with `pipeline`, its teacher and T5."""
+    merged into its base), an FTVAE state's decoder pair and its EMA, and,
+    with `pipeline`, its teacher and T5."""
     sd: StateDict = {}
     for role in STUDENT_ROLES:
         module = getattr(state, role)
@@ -328,6 +346,8 @@ def model_state_dict(state, pipeline=None) -> StateDict:
         role_sd = module.state_dict() if state.lora_base is None \
             else merged_state_dict(state.lora_base, module)
         sd.update({f"{role}_unet.{k}": v for k, v in role_sd.items()})
+    if getattr(state, "vae_dec", None) is not None:
+        sd.update(ftvae_state_dict(state.vae_dec, state.vae_dec_ema))
     if pipeline is not None:
         if "teacher" in pipeline.unets:
             sd.update({f"teacher_unet.{k}": v
@@ -372,10 +392,10 @@ def save_checkpoint(directory: str, state, pipeline=None, config=None,
 
 def load_checkpoint(directory: str, state) -> Optional[dict]:
     """Restore a `save_checkpoint` directory into `state` in place: the
-    roles, the optimizer, the LR schedule and the step. A LoRA state takes
-    its factors from optimizer.bin and keeps its base, which must be the one
-    the checkpoint's roles were merged from. Returns config.json's dict, or
-    None."""
+    roles, an FTVAE state's decoder pair and its EMA, the optimizer, the LR
+    schedule and the step. A LoRA state takes its factors from optimizer.bin
+    and keeps its base, which must be the one the checkpoint's roles were
+    merged from. Returns config.json's dict, or None."""
     dev = next(state.student.parameters()).device
     load = lambda name: torch.load(os.path.join(directory, name), map_location=dev,
                                    weights_only=True)
@@ -386,6 +406,12 @@ def load_checkpoint(directory: str, state) -> Optional[dict]:
     if (factors is None) != (state.lora_base is None):
         raise ValueError(f"{directory}: a {'LoRA' if factors else 'full'} checkpoint cannot "
                          f"resume a {'LoRA' if state.lora_base is not None else 'full'} run")
+    trained, ema = extract_ftvae_decoders(model)
+    ftvae = getattr(state, "vae_dec", None) is not None
+    if (trained is not None) != ftvae or (ftvae and ema is None):
+        raise ValueError(f"{directory}: {'an FTVAE' if trained is not None else 'a'} checkpoint "
+                         f"cannot resume {'an FTVAE' if ftvae else 'a'} run (--finetune_vae "
+                         "must match, and an FTVAE checkpoint holds the EMA decoder pair)")
     for role in STUDENT_ROLES:
         module = getattr(state, role)
         if module is None:
@@ -394,6 +420,9 @@ def load_checkpoint(directory: str, state) -> Optional[dict]:
             module.load_state_dict(factors[role])
         else:
             load_into(module, strip_prefix(model, f"{role}_unet."), role)
+    if ftvae:
+        load_into(state.vae_dec, trained, "FTVAE decoder")
+        load_into(state.vae_dec_ema, ema, "FTVAE EMA decoder")
     if factors is not None:
         saved = strip_prefix(model, "student_unet.")
         merged = merged_state_dict(state.lora_base, state.student)

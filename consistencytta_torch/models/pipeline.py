@@ -162,19 +162,32 @@ class Pipeline:
 
     # -- decode -------------------------------------------------------------
 
+    def decode_mel(self, vae: nn.Module, z_scaled: torch.Tensor) -> torch.Tensor:
+        """scaled latent NHWC -> mel image NHWC through the decoder pair `vae`;
+        a pair that holds float32 weights under a lower compute dtype on the
+        card (the stage-3 FTVAE decoder in training) runs under autocast."""
+        autocast = (self.device.type == "cuda" and self.dtype != torch.float32
+                    and vae.post_quant_conv.weight.dtype == torch.float32)
+        with torch.autocast("cuda", dtype=self.dtype, enabled=autocast):
+            return vae.decode_first_stage(z_scaled)
+
     def decode_latents(self, z_scaled: torch.Tensor, chunk: Optional[int] = None,
-                       use_ema_decoder: bool = False) -> torch.Tensor:
+                       use_ema_decoder: bool = False,
+                       decoder: Optional[nn.Module] = None) -> torch.Tensor:
         """scaled latent NHWC [B, t, f, c] -> waveform [B, samples], float32.
 
+        `decoder` (a decoder pair: `decoder` + `post_quant_conv`) decodes in
+        place of the pipeline's VAE: the stage-3 FTVAE step's trainable copy.
         `use_ema_decoder` decodes through `vae_ema` when one is loaded (a
         missing EMA pair falls back to the plain decoder, as in the
         reference). `chunk` decodes in batch sub-chunks to bound the peak
         activation memory; the DC centring stays batch-global, so chunked
         and whole results are the same."""
         vae = self.vae_ema if use_ema_decoder and self.vae_ema is not None else self.vae
+        vae = decoder if decoder is not None else vae
 
         def decode_one(z):
-            mel = vae.decode_first_stage(z)  # [b, T, F, 1]
+            mel = self.decode_mel(vae, z)  # [b, T, F, 1]
             return self.vocoder(mel[..., 0].transpose(1, 2))
 
         b = z_scaled.shape[0]

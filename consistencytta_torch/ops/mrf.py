@@ -230,14 +230,18 @@ class _FusedMrf(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        # autograd through the plain version, for the inputs that need a
+        # gradient only: a frozen vocoder's weights take none
         x, *params = ctx.saved_tensors
         kernel_sizes, dilations, slope = ctx.cfg
         n = len(params) // 2
+        needs = (ctx.needs_input_grad[0], *ctx.needs_input_grad[4:])
         with torch.enable_grad():
-            xs = [t.detach().requires_grad_() for t in (x, *params)]
+            xs = [t.detach().requires_grad_(need) for t, need in zip((x, *params), needs)]
             out = mrf_level_plain(xs[0], xs[1:1 + n], xs[1 + n:],
                                   kernel_sizes, dilations, slope)
-            grads = torch.autograd.grad(out, xs, g)
+            found = iter(torch.autograd.grad(out, [t for t in xs if t.requires_grad], g))
+        grads = [next(found) if need else None for need in needs]
         return (grads[0], None, None, None, *grads[1:])
 
 

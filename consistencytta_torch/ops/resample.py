@@ -1,12 +1,15 @@
-"""Kaiser-windowed sinc resampling (polyphase, torchaudio semantics) on the
-host, for reading audio files.
+"""Kaiser-windowed sinc resampling (polyphase, torchaudio semantics): on the
+host for reading audio files (`resample_numpy`), and on tensors with
+gradients for the stage-3 CLAP loss's 16 -> 48 kHz step (`resample`).
 
-The port's copy of the JAX package's `resample_numpy` and the filter bank it
-builds (consistencytta_tpu/ops/resample.py:31-58, :91): resampy's
+The port's copy of the JAX package's `resample`, `resample_numpy` and the
+filter bank they build (consistencytta_tpu/ops/resample.py:31-91): resampy's
 kaiser_best settings (lowpass filter width 64, rolloff 0.9475937167399596,
 beta 14.769656459379492) as torchaudio's `sinc_interp_kaiser`. The bank is
 [new, width] for the gcd-reduced frequencies, and each output phase is one
-float32 product with the strided frames of the zero-padded input.
+float32 product with the strided frames of the zero-padded input: a strided
+`F.conv1d` on tensors, as the JAX package computes it with an XLA
+convolution outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ import math
 from functools import lru_cache
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 KAISER_BEST_ROLLOFF = 0.9475937167399596
 KAISER_BEST_BETA = 14.769656459379492
@@ -50,6 +55,20 @@ def _sinc_resample_kernel(
     kernel = (kernel * base_freq / orig).astype(np.float32)[:, None, :]
     kernel.flags.writeable = False
     return kernel, width, orig, new
+
+
+def resample(wav: torch.Tensor, orig_freq: int, new_freq: int) -> torch.Tensor:
+    """Resample [B, T] -> [B, ceil(T * new / orig)] float32, differentiable:
+    the bank as one strided conv1d, its phases interleaved."""
+    if orig_freq == new_freq:
+        return wav
+    kernel, width, orig, new = _sinc_resample_kernel(orig_freq, new_freq)
+    b, length = wav.shape
+    target_length = int(math.ceil(new * length / orig))
+    x = F.pad(wav.float(), (width, width + orig))
+    bank = torch.tensor(kernel, device=wav.device)
+    y = F.conv1d(x[:, None, :], bank, stride=orig)  # [B, new, frames]
+    return y.transpose(1, 2).reshape(b, -1)[:, :target_length]
 
 
 def resample_numpy(wav: np.ndarray, orig_freq: int, new_freq: int) -> np.ndarray:

@@ -7,6 +7,11 @@ that hashes whitespace tokens into the T5 vocab range; it is not lexically
 compatible with sentencepiece and exists so runs without tokenizer files
 work. `load_tokenizer` takes the first when it resolves, else the second.
 Both pad to a fixed length (padding="max_length").
+
+The stage-3 CLAP loss tokenizes captions for the CLAP text tower with
+RoBERTa's tokenizer: `load_clap_tokenizer` takes it where its files are
+local, else `HashClapTokenizer`, the same kind of stand-in with RoBERTa's
+special ids.
 """
 
 from __future__ import annotations
@@ -100,3 +105,52 @@ def tokenize_with_uncond(
     ids, mask = tokenizer(prompts, max_length)
     uncond_ids, uncond_mask = tokenizer([""] * len(prompts), max_length)
     return ids, mask, uncond_ids, uncond_mask
+
+
+ROBERTA_BOS_ID = 0
+ROBERTA_PAD_ID = 1
+ROBERTA_EOS_ID = 2
+
+
+class HashClapTokenizer:
+    """Stand-in for the RoBERTa tokenizer of the CLAP text tower, with the
+    Hugging Face tokenizer's dict-returning call (what `training/data.py`'s
+    loader calls): whitespace words hashed into the vocabulary's range, with
+    RoBERTa's special ids (bos 0, pad 1, eos 2). Not lexically compatible
+    with RoBERTa's BPE: real CLAP checkpoints need the real tokenizer."""
+
+    def __init__(self, vocab_size: int = 50265):
+        self.vocab_size = vocab_size
+
+    def _word_id(self, word: str) -> int:
+        h = int.from_bytes(hashlib.sha1(word.encode()).digest()[:4], "little")
+        return 3 + (h % (self.vocab_size - 3))
+
+    def __call__(self, prompts: Sequence[str], padding: str = "max_length",
+                 truncation: bool = True, max_length: int = 77,
+                 return_tensors: str = "np") -> dict:
+        ids = np.full((len(prompts), max_length), ROBERTA_PAD_ID, np.int32)
+        mask = np.zeros((len(prompts), max_length), np.int32)
+        for i, prompt in enumerate(prompts):
+            toks = [ROBERTA_BOS_ID]
+            toks += [self._word_id(w) for w in prompt.lower().split()][: max_length - 2]
+            toks.append(ROBERTA_EOS_ID)
+            ids[i, : len(toks)] = toks
+            mask[i, : len(toks)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+def load_clap_tokenizer(vocab_size: int = 50265):
+    """RoBERTa's tokenizer for the CLAP text tower where its files are local
+    (never downloaded) and its vocabulary fits the tower's embedding table
+    (`vocab_size`), else `HashClapTokenizer(vocab_size)`. Never None."""
+    if _tokenizer_files_present("roberta-base"):
+        try:
+            from transformers import AutoTokenizer
+
+            tok = AutoTokenizer.from_pretrained("roberta-base", local_files_only=True)
+        except (ImportError, OSError, ValueError):
+            tok = None
+        if tok is not None and getattr(tok, "vocab_size", 0) <= vocab_size:
+            return tok
+    return HashClapTokenizer(vocab_size=vocab_size)

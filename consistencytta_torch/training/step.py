@@ -31,8 +31,12 @@ A LoRA state (`training/lora.py:init_lora_state`) holds rank-r factors in
 its three roles and the frozen base student in `lora_base`; every query of
 a role then runs the base with the factors merged in (`role_unet`).
 
-Not ported, and refused with `NotImplementedError`: the `mel` / `stft` loss
-types (stage 3).
+The stage-2 step's per-instance loss is the latent MSE, or with
+`loss_type` "mel" the mel loss through the frozen VAE decoder, or "stft" the
+multi-resolution STFT loss on waveforms decoded through the frozen VAE and
+vocoder (`training/losses.py`); `loss_fn_override` replaces it, which is how
+stage 3's CLAP loss comes in (`training/clap_loss.py`). The FTVAE variant,
+whose VAE decoder trains beside the student, is `training/ftvae.py`.
 """
 
 from __future__ import annotations
@@ -53,7 +57,11 @@ from consistencytta_torch.ops.schedulers import (
     min_snr_weights_stage2,
 )
 from consistencytta_torch.training.ema import ema_update
-from consistencytta_torch.training.losses import mse_instance
+from consistencytta_torch.training.losses import (
+    MultiResolutionSTFTLoss,
+    mel_loss_instance,
+    mse_instance,
+)
 from consistencytta_torch.training.optim import OptimizerConfig, make_optimizer
 from consistencytta_torch.utils import resolve_device
 
@@ -102,7 +110,7 @@ class ConsistencyStepConfig:
     max_rand_guidance_scale: float = 6.0
     target_ema_decay: float = 0.95
     ema_decay: float = 0.999
-    loss_type: str = "mse"
+    loss_type: str = "mse"  # mse | mel | stft (clap comes through loss_fn_override)
     use_edm: bool = True
     accum_steps: int = 1
     uncondition: bool = False  # drop 10% of the text conditions per micro-batch
@@ -125,14 +133,17 @@ class GuidedStepConfig:
     accum_steps: int = 1
 
 
+LOSS_TYPES = ("mse", "mel", "stft")
+
+
 def _check_solver(schedule, cfg: ConsistencyStepConfig) -> None:
     want = HeunSchedule if cfg.use_edm else DDIMSchedule
     if not isinstance(schedule, want):
         raise ValueError(f"use_edm={cfg.use_edm} takes a {want.__name__}, not "
                          f"{type(schedule).__name__}")
-    if cfg.loss_type != "mse":
-        raise NotImplementedError(f"loss_type {cfg.loss_type!r} is not ported: only 'mse' is "
-                                  "(stage 3, ROADMAP.md item 2f)")
+    if cfg.loss_type not in LOSS_TYPES:
+        raise ValueError(f"unsupported loss type {cfg.loss_type!r}; choose one of {LOSS_TYPES} "
+                         "(clap comes through loss_fn_override)")
 
 
 def role_unet(state: TrainState, role: nn.Module):
@@ -321,6 +332,21 @@ def guarded_update(state: TrainState, loss: torch.Tensor) -> bool:
     return finite
 
 
+def build_instance_loss(pipeline: Pipeline, loss_type: str) -> Callable:
+    """instance_loss(pred, target, micro) -> [B] for a `loss_type` of
+    LOSS_TYPES (the JAX build_consistency_train_step's dispatch): the latent
+    MSE; "mel", the mel loss through the frozen VAE decoder; "stft", the
+    multi-resolution STFT loss on waveforms through the frozen decoder and
+    vocoder. Gradients flow through the decoders to the prediction only."""
+    if loss_type == "mel":
+        decode = lambda z: pipeline.decode_mel(pipeline.vae, z)
+        return lambda pred, target, micro: mel_loss_instance(pred, target, decode)
+    if loss_type == "stft":
+        stft_loss = MultiResolutionSTFTLoss(sr=pipeline.config.sample_rate)
+        return lambda pred, target, micro: stft_loss(pred, target, pipeline.decode_latents)
+    return lambda pred, target, micro: mse_instance(pred, target)
+
+
 def build_consistency_train_step(
     pipeline: Pipeline,
     schedule,
@@ -331,10 +357,12 @@ def build_consistency_train_step(
 
     batch: dict with wav [B, S], ids / mask / uncond_ids / uncond_mask
     [B, L]; B = accum_steps * micro_batch. `loss_fn_override(pred, target,
-    micro)` replaces the per-instance loss. `schedule` is a HeunSchedule
-    with `cfg.use_edm`, else a DDIMSchedule. The state is updated in place."""
+    micro)` replaces the per-instance loss of `cfg.loss_type`. `schedule` is
+    a HeunSchedule with `cfg.use_edm`, else a DDIMSchedule. The state is
+    updated in place."""
     _check_solver(schedule, cfg)
     resolve_device(pipeline.device)
+    instance_loss = loss_fn_override or build_instance_loss(pipeline, cfg.loss_type)
 
     def step(state: TrainState, batch: Batch, generator=None, draws=None):
         def micro_loss(micro, generator, draws):
@@ -342,10 +370,7 @@ def build_consistency_train_step(
                 pipeline, schedule, cfg, role_unet(state, state.student),
                 role_unet(state, state.student_target), micro, generator, draws,
             )
-            if loss_fn_override is not None:
-                inst = loss_fn_override(pred, target, micro)
-            else:
-                inst = mse_instance(pred, target)
+            inst = instance_loss(pred, target, micro)
             if cfg.snr_gamma is not None:
                 inst = inst * min_snr_weights_stage2(snr, cfg.snr_gamma)
             return inst.mean()

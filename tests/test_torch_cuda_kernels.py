@@ -108,6 +108,33 @@ def test_flash_mha_packed_gradient_under_autocast_is_the_plain_gradient(gen, b, 
         assert_close_rel(torch.cat([dq, dv, dk], dim=-1), want, 2e-2)
 
 
+@pytest.mark.parametrize("b,s", [(2, 4096), (1, 333)])
+def test_flash_self_attention_gradient_under_autocast_is_the_plain_gradient(gen, b, s):
+    """As the stage-3 decoder's backward takes it (the VAE mid-block under
+    autocast, q, k, v slices of one projection): the gradient equals
+    autograd through the plain version outside autocast, in bf16, and the
+    tolerance rejects the gradient at 1.1 x the scale and dk, dv exchanged."""
+    qkv = torch.randn(b, s, 3 * 512, device="cuda", generator=gen).bfloat16()
+    g = torch.randn(b, s, 512, device="cuda", generator=gen).bfloat16()
+
+    def grad(fn, autocast, scale=512 ** -0.5):
+        leaf = qkv.clone().requires_grad_()
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=autocast):
+            out = fn(*leaf.split(512, dim=-1), scale)
+        return torch.autograd.grad(out, leaf, g)[0]
+
+    before = ops.flash_self_attention.launches
+    got = grad(ops.flash_self_attention, True)
+    assert ops.flash_self_attention.launches == before + 1 and got.dtype == torch.bfloat16
+    want = grad(ops.attention_plain, False)
+    assert_close_rel(got, want, 2e-2)
+    dq, dk, dv = want.split(512, dim=-1)
+    for bad in (grad(ops.attention_plain, False, 1.1 * 512 ** -0.5),
+                torch.cat([dq, dv, dk], dim=-1)):
+        with pytest.raises(AssertionError):
+            assert_close_rel(bad, want, 2e-2)
+
+
 @pytest.mark.parametrize("b,s", [(2, 4096), (1, 300), (1, 200), (2, 77), (1, 4095), (1, 64)])
 def test_flash_self_attention(gen, b, s):
     qkv = torch.randn(b, s, 3 * 512, device="cuda", generator=gen).bfloat16()
@@ -217,6 +244,29 @@ def test_mrf_tolerance_rejects_planted_faults(gen, c):
         with pytest.raises(AssertionError):
             assert_close_rel(bad, want, 3e-2)
             pytest.fail(name)  # not reached when the fault is caught
+
+
+@pytest.mark.parametrize("b,c,length", [(2, 128, 4099), (1, 32, 1500)])
+def test_mrf_gradient_wrt_x_is_the_plain_gradient(gen, b, c, length):
+    """As the stage-3 losses' backward takes it through a frozen vocoder:
+    the gradient with respect to x equals autograd through the plain level,
+    the weights get none, and the tolerance rejects the plain gradient with
+    the slope 0.2 or one dilation triple reversed."""
+    x, ws, bs = _mrf_inputs(gen, b, c, length)
+    g = torch.randn(b, c, length, device="cuda", generator=gen).bfloat16()
+
+    def grad(fn, ds=DS, slope=0.1):
+        leaf = x.clone().requires_grad_()
+        return torch.autograd.grad(fn(leaf, ws, bs, KS, ds, slope), leaf, g)[0]
+
+    got = grad(mrf.fused_mrf_level)
+    want = grad(mrf.mrf_level_plain)
+    assert got.dtype == torch.bfloat16 and all(w.grad is None for w in ws)
+    assert_close_rel(got, want, 3e-2)
+    for bad in (grad(mrf.mrf_level_plain, slope=0.2),
+                grad(mrf.mrf_level_plain, ds=((5, 3, 1),) + DS[1:])):
+        with pytest.raises(AssertionError):
+            assert_close_rel(bad, want, 3e-2)
 
 
 @pytest.mark.parametrize("b,c,length", [(2, 32, 661), (1, 128, 245), (1, 512, 300)])

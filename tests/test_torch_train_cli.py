@@ -12,7 +12,12 @@ roles, optimizer, schedule and step bit for bit and takes one more step;
 stage 2 with DDIM and with --use_lora; the inference CLI serves the written
 `best` with its config replay; the LoRA checkpoint loads as plain modules;
 the JAX CLI's loader reads the port's file to the same parameters; the T5
-travels with the checkpoint.
+travels with the checkpoint. Then stage 3 from stage 2's `best`, with a
+seeded random CLAP checkpoint of small towers at the published frontend:
+`--loss_type clap --finetune_vae` for 2 steps writing `step_2`, its resume
+(the decoder pair and its EMA bit for bit too) for one more step, the
+inference CLI on its `best` through the EMA decoder (--use_ema), the JAX
+CLI's loader on its file; one step each of `--loss_type mel` and `stft`.
 """
 
 import dataclasses
@@ -37,8 +42,10 @@ from consistencytta_torch.io import checkpoints as ck
 from consistencytta_torch.io import from_jax
 from consistencytta_torch.io.audio import write_wav
 from consistencytta_torch.models.pipeline import STUDENT_ROLES, Pipeline
+from consistencytta_torch.tools.random_eval_checkpoints import write_eval_checkpoints
 from consistencytta_torch.training import lora
 from consistencytta_torch.training.optim import make_optimizer
+from tests.torch_eval_common import SMALL_HTSAT, SMALL_ROBERTA
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEG = 64 * 160  # the tiny pipeline's segment
@@ -46,7 +53,6 @@ TINY_SAMPLES = 10272
 # flags that nothing reads, because the port refuses what they configure
 # or, as in the JAX CLI, they are accepted for the recipe's sake
 UNREAD = {
-    "clap_checkpoint": "used only by --loss_type clap, which is refused (stage 3)",
     "test_file": "the recipe passes it; the test set is the inference CLI's (as in the JAX CLI)",
 }
 
@@ -138,10 +144,11 @@ def test_schedules_match_jax(flags):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--loss_type", "mel"], NotImplementedError, "2f"),
-    (["--loss_type", "stft"], NotImplementedError, "2f"),
-    (["--loss_type", "clap"], NotImplementedError, "clap_checkpoint"),
-    (["--finetune_vae"], NotImplementedError, "finetune_vae"),
+    (["--loss_type", "clap"], FileNotFoundError, "clap_checkpoint"),
+    (["--loss_type", "clap", "--clap_checkpoint", "no/such.pt", "--finetune_vae"],
+     FileNotFoundError, "clap_checkpoint"),
+    (["--finetune_vae"], ValueError, "finetune_vae requires --loss_type clap"),
+    (["--loss_type", "clap", "--use_lora", "--finetune_vae"], ValueError, "exclusive"),
     (["--num_devices", "2"], NotImplementedError, "2d"),
     (["--num_devices", "0"], ValueError, "num_devices"),
     (["--stage", "1", "--use_lora"], ValueError, "use_lora"),
@@ -221,7 +228,8 @@ def chain(tmp_path_factory):
             "--train_file", train_m, "--validation_file", val_m, "--text_len", "8",
             "--tango_model", tango, "--vae_checkpoint", vae, "--snr_gamma", "5",
             "--teacher_guidance_scale", "-1", "--num_diffusion_steps", "4"]
-    out = {k: str(root / k) for k in ("stage1", "stage2", "ddim", "lora", "gen")}
+    out = {k: str(root / k) for k in ("stage1", "stage2", "ddim", "lora", "gen", "ftvae", "mel",
+                                      "stft")}
     stage1 = train.main(base + [
         "--stage", "1", "--augment", "--per_device_train_batch_size", "2",
         "--gradient_accumulation_steps", "2", "--per_device_eval_batch_size", "2",
@@ -245,16 +253,35 @@ def chain(tmp_path_factory):
     lora_resumed = train.prepare(s2 + ["--use_edm", "--use_lora", "--output_dir", out["lora"],
                                        "--resume_from_checkpoint",
                                        os.path.join(out["lora"], "best")])
+    # stage 3 from stage 2's best (recipes/train.sh), CLAP towers from a file
+    clap = write_eval_checkpoints(str(root / "ckpt"), 0, SMALL_HTSAT, SMALL_ROBERTA,
+                                  which=("clap",))["clap"]
+    s3 = s2[:s2.index("--stage1_model") + 1] + [os.path.join(out["stage2"], "best")] \
+        + s2[s2.index("--stage1_model") + 2:] + ["--use_edm", "--clap_checkpoint", clap,
+                                                 "--loss_type", "clap", "--finetune_vae"]
+    ftvae = train.main(s3 + ["--max_train_steps", "2", "--checkpointing_steps", "2",
+                             "--output_dir", out["ftvae"]])
+    ftvae_resumed = train.prepare(s3 + ["--max_train_steps", "3", "--checkpointing_steps",
+                                        "best", "--output_dir", out["ftvae"],
+                                        "--resume_from_checkpoint",
+                                        os.path.join(out["ftvae"], "step_2")])
+    ftvae_restored = {"step": ftvae_resumed.state.step, **_snapshot(ftvae_resumed.state)}
+    train.run(ftvae_resumed)
+    other = {loss: train.main(s2 + ["--use_edm", "--loss_type", loss, "--max_train_steps", "1",
+                                    "--checkpointing_steps", "none", "--save_every", "1000",
+                                    "--output_dir", out[loss]]) for loss in ("mel", "stft")}
     return {"root": root, "out": out, "val": val_m, "vae": vae, "stage1": stage1,
             "stage2": stage2, "restored": restored, "resumed": resumed, "ddim": ddim,
-            "lora": lora_state, "lora_resumed": lora_resumed}
+            "lora": lora_state, "lora_resumed": lora_resumed, "ftvae": ftvae,
+            "ftvae_restored": ftvae_restored, "ftvae_resumed": ftvae_resumed, **other}
 
 
 def _snapshot(state):
-    """Every tensor of a state, copied: roles, optimizer state, schedule."""
+    """Every tensor of a state, copied: roles, an FTVAE state's decoder pair
+    and its EMA, optimizer state, schedule."""
     out = {}
-    for role in STUDENT_ROLES:
-        m = getattr(state, role)
+    for role in (*STUDENT_ROLES, "vae_dec", "vae_dec_ema"):
+        m = getattr(state, role, None)
         if m is not None:
             out.update({f"{role}.{k}": v.clone() for k, v in m.state_dict().items()})
     for i, s in state.optimizer.state_dict()["state"].items():
@@ -393,3 +420,87 @@ def test_directory_model_paths(chain, tmp_path):
     best = os.path.join(chain["out"]["stage1"], "best")
     assert ck.checkpoint_file(best) == os.path.join(best, ck.MODEL_FILE)
     assert ck.checkpoint_file(chain["vae"]) == chain["vae"]
+
+
+# -- stage 3 --------------------------------------------------------------------
+
+
+def test_ftvae_writes_the_reference_layout(chain):
+    """The FTVAE run's step_2: the roles, the trained decoder pair and its
+    EMA under the reference's keys, no CLAP weights; the decoder trained;
+    its validation logs loss_decoder_mel."""
+    out = chain["out"]["ftvae"]
+    assert sorted(os.listdir(out)) == ["best", "step_2", "summary.jsonl"]
+    sd = torch.load(os.path.join(out, "step_2", ck.MODEL_FILE))
+    assert sorted({k.split(".")[0] for k in sd}) == \
+        ["ema_vae_decoder", "ema_vae_pqconv", "student_ema_unet", "student_target_unet",
+         "student_unet", "teacher_unet", "text_encoder", "vae"]
+    assert not any("branch" in k or "projection" in k for k in sd)
+    state = chain["ftvae"]
+    trained, ema = ck.extract_ftvae_decoders(sd)
+    assert sorted(trained) == sorted(ema) == sorted(state.vae_dec.state_dict())
+    opt = torch.load(os.path.join(out, "step_2", ck.OPTIMIZER_FILE))
+    n_student = len(list(state.student.parameters()))
+    assert len(opt["state"]) == n_student + len(list(state.vae_dec.parameters()))
+    rec = [r for r in _records(out) if "loss_decoder_mel" in r]
+    assert rec and all(np.isfinite(rec[-1][k]) for k in
+                       ("loss_w_teacher", "loss_decoder_mel", "train_loss"))
+
+
+def test_ftvae_resume_restores_the_decoders_bit_for_bit(chain):
+    saved, restored = _snapshot(chain["ftvae"]), chain["ftvae_restored"]
+    assert restored["step"] == 2 and chain["ftvae_resumed"].state.step == 3
+    assert any(k.startswith("vae_dec_ema.") for k in restored)
+    assert sorted(saved) == sorted(k for k in restored if k != "step")
+    for k, v in saved.items():
+        if k == "lr_scheduler":
+            assert restored[k] == v
+        else:
+            assert torch.equal(restored[k], v), k
+    # a full checkpoint does not resume an FTVAE run, nor the reverse
+    with pytest.raises(ValueError, match="FTVAE"):
+        ck.load_checkpoint(os.path.join(chain["out"]["ftvae"], "best"), chain["resumed"].state)
+
+
+def test_inference_cli_decodes_through_the_ema_decoder(chain, tmp_path):
+    best = os.path.join(chain["out"]["ftvae"], "best")
+    gen = Pipeline.create(PipelineConfig.tiny(), dtype=torch.float32, device="cpu", seed=9)
+    loaded = ck.load_frozen_and_roles(gen, model_path=best, vae_checkpoint=chain["vae"])
+    assert {"vae decoder", "vae_ema"} <= set(loaded)
+    state = chain["ftvae_resumed"].state
+    for module, want in ((gen.vae_ema, state.vae_dec_ema), (gen.vae, state.vae_dec)):
+        got = module.state_dict()
+        assert all(torch.equal(got[k], v) for k, v in want.state_dict().items())
+    out = str(tmp_path / "gen")
+    result = inference.main([
+        "--device", "cpu", "--model", best, "--original_args",
+        os.path.join(chain["out"]["ftvae"], "summary.jsonl"), "--vae_checkpoint", chain["vae"],
+        "--use_edm", "--use_ema", "--test_file", chain["val"], "--batch_size", "2",
+        "--skip_eval", "--seed", "5", "--output_dir", out])
+    assert result["num_clips"] == 4
+    for n in sorted(x for x in os.listdir(out) if x.endswith(".wav")):
+        sr, data = wavfile.read(os.path.join(out, n))
+        assert sr == 16000 and data.shape == (TINY_SAMPLES,)
+
+
+def test_jax_loader_reads_the_port_ftvae_file(chain):
+    """cli/common.py's loader on the FTVAE run's file: its VAE decoder pair
+    and its EMA pair equal the port's."""
+    path = os.path.join(chain["out"]["ftvae"], "best", ck.MODEL_FILE)
+    jparams = jax_load(JaxPipeline.create(JaxPipelineConfig.tiny()), model_path=path,
+                       vae_checkpoint=chain["vae"])
+    state = chain["ftvae_resumed"].state
+    cfg = PipelineConfig.tiny().vae
+    for tree, module in ((jparams.vae, state.vae_dec), (jparams.vae_ema, state.vae_dec_ema)):
+        want = from_jax.vae_decoder_state_dict(tree, cfg)
+        got = module.state_dict()
+        assert sorted(got) == sorted(want)
+        assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+@pytest.mark.parametrize("loss", ["mel", "stft"])
+def test_mel_and_stft_losses_train(chain, loss):
+    state = chain[loss]
+    assert state.step == 1
+    rec = [r for r in _records(chain["out"][loss]) if "train_loss" in r]
+    assert rec and np.isfinite(rec[-1]["train_loss"]) and np.isfinite(rec[-1]["loss_w_teacher"])

@@ -320,16 +320,24 @@ def test_generation_roles_still_share_one_frozen_module():
 
 
 def test_unported_options_raise():
-    """Stage 3's loss types are refused; a solver that does not match
-    `use_edm` is an error; the DDIM branch builds."""
+    """An unknown loss type is refused (clap comes through the loss
+    override); stage 3's mel and STFT losses build and take a step that
+    moves the student; a solver that does not match `use_edm` is an error;
+    the DDIM branch builds."""
     p = Pipeline.create(PipelineConfig.tiny(), dtype=torch.float32, device="cpu",
                         roles=ROLES, training=True)
     heun = sched.make_heun_schedule(SchedulerConfig(), 18)
     ddim = sched.make_ddim_schedule(SchedulerConfig(), 18)
+    with pytest.raises(ValueError, match="loss type"):
+        step.build_consistency_train_step(p, heun, step.ConsistencyStepConfig(loss_type="clap"))
     for loss_type in ("mel", "stft"):
-        with pytest.raises(NotImplementedError, match=loss_type):
-            step.build_consistency_train_step(p, heun, step.ConsistencyStepConfig(
-                loss_type=loss_type))
+        run = step.build_consistency_train_step(p, heun, step.ConsistencyStepConfig(
+            loss_type=loss_type))
+        state = step.TrainState.create(p, common.optimizer_configs()[1])
+        before = state.student.conv_in.weight.clone()
+        metrics = run(state, make_batch(2), draws=stage2_draws(jax.random.PRNGKey(3), 2, 18))
+        assert metrics["loss_finite"] and torch.isfinite(metrics["loss"])
+        assert not torch.equal(state.student.conv_in.weight, before), loss_type
     for schedule, cfg in ((heun, step.ConsistencyStepConfig(use_edm=False)),
                           (ddim, step.ConsistencyStepConfig(use_edm=True))):
         with pytest.raises(ValueError, match="use_edm"):
