@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `consistencytta_torch/csrc/` (one nvcc per
-source, in parallel, into `build/`), then runs nine phases, each printing
+source, in parallel, into `build/`), then runs ten phases, each printing
 JSON lines:
 
   env      card name and power limit (nvidia-smi), torch / CUDA versions,
@@ -127,6 +127,23 @@ JSON lines:
            run, the K1-K4 launches against the counts the flags imply
            (fit_expected with the loss's decodes), seconds per optimizer
            step, validation and checkpoint seconds, GB, peak memory;
+  ddp      data-parallel training (parallel/mesh.py) at full width, stage 2
+           Heun at a global batch of DDP_WORLD x DDP_MICRO with the draws of
+           one seeded generator: the single-rank step on the whole batch
+           (DDP_STEPS steps), one NCCL group of world size 1 through the
+           sharded step (one step), then DDP_WORLD gloo ranks sharing cuda:0
+           (spawned; NCCL takes one rank a card): the sound run of DDP_STEPS
+           steps and one step under each of three planted faults (rank 1
+           skips the all-reduce, the mean drops its 1/N, rank 1's shard is
+           updated twice). Each against the single-rank run at every
+           DDP_STRIDE-th element of the flat student: the loss, the AdamW
+           moments and the EMA shadow (held to TOL_DDP, a limit between the
+           sound reading and the faults', which must all exceed it), the
+           student's and the EMA's updates; the ranks' students equal bit
+           for bit; each rank's K1, K2 and K4 launches against the counts the
+           steps imply, its peak memory and the moment and EMA bytes it holds
+           beside the single-rank run's. Where several cards are present,
+           the training CLI with --num_devices <cards> over NCCL (2 steps);
   kernels  one line naming every kernel with its launches, error and times.
 
 Then the nvidia-smi line, then the last line
@@ -1285,6 +1302,308 @@ def stage3_phase(torch, config, ctx, stage3_dir, reset_counters, read_counters, 
     return runs.lines, runs.totals, infer_counts
 
 
+DDP_WORLD = 2  # gloo ranks sharing cuda:0 (NCCL takes one rank a card)
+DDP_MICRO = 2  # rows a rank takes of each global batch
+DDP_STEPS = 3  # optimizer steps of the sound run; each planted fault takes one
+DDP_STRIDE = 1009  # compared positions: every 1009th element of the flat student
+DDP_SEED = 11  # the draws' generator, seeded alike in every process
+# limits between the sound 2-rank reading and the planted faults' (the
+# ddp phase's line prints every reading beside them)
+TOL_DDP = {"loss_rel_err": 0.02, "exp_avg_rel_l2": 0.1, "exp_avg_sq_rel_l2": 0.1}
+DDP_FAULTS = ("rank1_skips_all_reduce", "mean_drops_1_over_n", "rank1_shard_updated_twice")
+DDP_ROLES = ("student", "student_target", "student_ema", "teacher")
+
+
+def ddp_batch(torch, config, n, seed, dev):
+    """A global batch of n seeded synthetic 10-s clips (a tone and noise) with
+    hash-tokenized prompts, on `dev`: the same in every process."""
+    from consistencytta_torch.text.tokenizer import HashTokenizer, tokenize_with_uncond
+
+    g = torch.Generator(device=dev).manual_seed(2000 + seed)
+    t = torch.arange(config.segment_samples, device=dev) / config.sample_rate
+    f0 = 110.0 * 2.0 ** (4.0 * torch.rand(n, 1, device=dev, generator=g))
+    wav = 0.3 * torch.sin(2 * torch.pi * f0 * t) \
+        + 0.05 * torch.randn(n, t.numel(), device=dev, generator=g)
+    prompts = [PROMPTS[(seed + i) % len(PROMPTS)] for i in range(n)]
+    ids, mask, uids, umask = tokenize_with_uncond(
+        HashTokenizer(vocab_size=config.t5.vocab_size), prompts, TEXT_LEN)
+    return {"wav": wav, "ids": ids, "mask": mask, "uncond_ids": uids, "uncond_mask": umask}
+
+
+class DdpRun:
+    """One process's stage-2 training set-up for the ddp phase: `config`
+    (bf16 frozen modules, fp32 trained roles) from seed 0,
+    an 18-step Heun schedule, a constant learning rate; `fresh` resets the
+    roles to their initial weights and gives a new state."""
+
+    def __init__(self, torch, config, dev):
+        from consistencytta_torch.models.pipeline import Pipeline
+        from consistencytta_torch.ops import schedulers
+        from consistencytta_torch.training import step as tstep
+
+        self.torch, self.config, self.dev, self.tstep = torch, config, dev, tstep
+        self.pipe = Pipeline.create(self.config, dtype=torch.bfloat16, device=dev, seed=0,
+                                    roles=DDP_ROLES, training=True)
+        self.init = {k: v.clone() for k, v in self.pipe.unets["student"].state_dict().items()}
+        heun = schedulers.make_heun_schedule(self.config.scheduler, HEUN_STEPS)
+        self.step_fn = tstep.build_consistency_train_step(self.pipe, heun,
+                                                          tstep.ConsistencyStepConfig())
+
+    def fresh(self):
+        from consistencytta_torch.training.optim import OptimizerConfig
+
+        for role in ("student", "student_target", "student_ema"):
+            m = self.pipe.unets[role]
+            if any(p.is_meta for p in m.parameters()):  # a sharded shadow's skeleton
+                m.to_empty(device=self.dev)
+            m.load_state_dict(self.init)
+        return self.tstep.TrainState.create(
+            self.pipe, OptimizerConfig(learning_rate=TRAIN_LR, lr_scheduler_type="constant"))
+
+    def batch(self, i):
+        return ddp_batch(self.torch, self.config, DDP_WORLD * DDP_MICRO, i, self.dev)
+
+
+def ddp_checksum(torch, module) -> int:
+    """A bit-exact checksum of a module's parameters (their int32 words)."""
+    return int(sum(p.detach().reshape(-1).view(torch.int32).long().sum().item()
+                   for p in module.parameters()))
+
+
+def ddp_samples(torch, state, lo=0, hi=None):
+    """The compared values: the student at every DDP_STRIDE-th position of
+    its flat parameters and, at those of the positions within [lo, hi), the
+    AdamW moments and the EMA shadow (a ZeRO-1 rank holds exactly them)."""
+    params = list(state.student.parameters())
+    cat = lambda ts: torch.cat([t.detach().reshape(-1) for t in ts])
+    hi = sum(p.numel() for p in params) if hi is None else hi
+    start = -(-lo // DDP_STRIDE) * DDP_STRIDE  # the first compared position in range
+    opt = state.optimizer
+    if getattr(state, "zero1", None) is not None:  # the rank's range [lo, hi) only
+        keys, shadow, offset = opt.param_groups[0]["params"], state.student_ema.pieces, lo
+    else:
+        keys, shadow, offset = params, list(state.student_ema.parameters()), 0
+    pick = lambda flat: flat[start - offset:hi - offset:DDP_STRIDE].float().cpu()
+    out = {k: pick(cat([opt.state[p][k] for p in keys])) for k in ("exp_avg", "exp_avg_sq")}
+    out["ema"] = pick(cat(shadow))
+    out["positions"] = torch.arange(start, hi, DDP_STRIDE)
+    out["student"] = cat(params)[::DDP_STRIDE].float().cpu()
+    return out
+
+
+def ddp_before(torch, state):
+    """The student and EMA samples of a state before its first update."""
+    cat = lambda m: torch.cat([p.detach().reshape(-1) for p in m.parameters()])
+    return {"student": cat(state.student)[::DDP_STRIDE].float().cpu(),
+            "ema": cat(state.student_ema)[::DDP_STRIDE].float().cpu()}
+
+
+def _ddp_plant(fault, mesh, state, pm):
+    """Plant a fault into this rank's sharded step; returns its undo."""
+    original = pm.all_reduce_mean
+    if fault == "rank1_skips_all_reduce":
+        def reduce(tensors, m):  # rank 1 takes part, and keeps its own values
+            original([t.clone() for t in tensors] if m.rank == 1 else tensors, m)
+        pm.all_reduce_mean = reduce
+    elif fault == "mean_drops_1_over_n":
+        def reduce(tensors, m):
+            original(tensors, m)
+            for t in tensors:
+                t.mul_(m.world)
+        pm.all_reduce_mean = reduce
+    elif fault == "rank1_shard_updated_twice" and mesh.rank == 1:
+        once = state.optimizer.step
+        state.optimizer.step = lambda *a, **k: (once(), once())[1]
+
+    def undo():
+        pm.all_reduce_mean = original
+    return undo
+
+
+def ddp_rank(mesh, config, out_pattern):
+    """One gloo rank of the ddp phase (spawned; cuda:0 shared): the sound
+    run of DDP_STEPS sharded steps, then one step under each planted fault,
+    each from the initial weights; writes its readings to
+    out_pattern % rank."""
+    import torch
+
+    from consistencytta_torch.ops import attention as att, mrf, stft, dilated_conv as dconv
+    from consistencytta_torch.parallel import mesh as pm
+
+    counters = {"flash_mha_packed": att.flash_mha_packed,
+                "flash_self_attention": att.flash_self_attention,
+                "fused_mrf_level": mrf.fused_mrf_level, "stft_magnitude": stft.stft_magnitude_cuda,
+                "dilated_conv1d": dconv.dilated_conv1d}
+    t0 = time.perf_counter()
+    run = DdpRun(torch, config, mesh.device)
+    torch.cuda.synchronize()
+    out = {"create_seconds": time.perf_counter() - t0,
+           "initial_checksum": ddp_checksum(torch, run.pipe.unets["student"])}
+    for fault in ("sound", *DDP_FAULTS):
+        state = run.fresh()
+        pm.shard_train_state(state, mesh)
+        undo = _ddp_plant(fault, mesh, state, pm)
+        step = pm.sharded_step(run.step_fn, mesh)
+        gen = torch.Generator(device=mesh.device).manual_seed(DDP_SEED)
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        losses, seconds = [], []
+        for i in range(DDP_STEPS if fault == "sound" else 1):
+            batch = run.batch(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(state, batch, generator=gen)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            losses.append(metrics["loss"].item())
+        undo()
+        out[fault] = {"losses": losses, "step_seconds": seconds,
+                      "launches": {k: fn.launches for k, fn in counters.items()},
+                      "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+                      "held_bytes": pm.held_bytes(state),
+                      "checksum": ddp_checksum(torch, state.student),
+                      **ddp_samples(torch, state, *state.zero1.bounds[mesh.rank])}
+        del state, step
+    torch.save(out, out_pattern % mesh.rank)
+
+
+def _rel(torch, got, want) -> float:
+    return float((got - want).norm() / want.norm())
+
+
+def ddp_readings(torch, got, ref, ref_before):
+    """The compared readings of one run against the single-rank reference."""
+    loss = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"]))
+    readings = {"loss_rel_err": loss}
+    for k in ("exp_avg", "exp_avg_sq"):
+        readings[f"{k}_rel_l2"] = _rel(torch, got[k], ref[k])
+    update = lambda s: s["student"] - ref_before["student"]
+    readings["student_update_rel_l2"] = _rel(torch, update(got), update(ref))
+    readings["ema_update_rel_l2"] = _rel(torch, got["ema"] - ref_before["ema"],
+                                         ref["ema"] - ref_before["ema"])
+    readings["over_limit"] = [k for k, tol in TOL_DDP.items() if not readings[k] <= tol]
+    return readings
+
+
+def ddp_phase(torch, config, dev, out_dir):
+    """The ddp phase: the single-rank reference, one NCCL group of world
+    size 1 through the sharded step, two gloo ranks on cuda:0 with the sound
+    run and three planted faults, and where several cards are present the
+    training CLI over NCCL on all of them. Returns the phase's line and the
+    launches of the two ranks' sound run, per kernel."""
+    import torch.distributed as dist
+
+    from consistencytta_torch.parallel import mesh as pm
+
+    t_phase = time.perf_counter()
+    run = DdpRun(torch, config, dev)
+    initial = ddp_checksum(torch, run.pipe.unets["student"])
+
+    # the single-rank step on the whole global batch, the same draws
+    state = run.fresh()
+    gen = torch.Generator(device=dev).manual_seed(DDP_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    before, ref, losses, seconds = None, {}, [], []
+    for i in range(DDP_STEPS):
+        batch = run.batch(i)
+        if before is None:
+            before = ddp_before(torch, state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = run.step_fn(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"].item())
+        if i in (0, DDP_STEPS - 1):
+            ref[i + 1] = {**ddp_samples(torch, state), "losses": list(losses)}
+    single = {"step_seconds": seconds, "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+              "held_bytes": pm.held_bytes(state), "losses": losses}
+    del state
+
+    # one NCCL group of world size 1 through the sharded step
+    mesh = pm.make_mesh(0, 1, f"tcp://localhost:{pm.free_port()}", [dev])
+    try:
+        state = pm.shard_train_state(run.fresh(), mesh)
+        gen = torch.Generator(device=dev).manual_seed(DDP_SEED)
+        metrics = pm.sharded_step(run.step_fn, mesh)(state, run.batch(0), generator=gen)
+        got = {**ddp_samples(torch, state), "losses": [metrics["loss"].item()]}
+        nccl = ddp_readings(torch, got, ref[1], before)
+        nccl["exact"] = all(torch.equal(got[k], ref[1][k])
+                            for k in ("student", "exp_avg", "exp_avg_sq", "ema"))
+        del state
+    finally:
+        dist.destroy_process_group()
+    del run
+    torch.cuda.empty_cache()
+
+    # two gloo ranks sharing the card
+    pattern = os.path.join(out_dir, "ddp_rank%d.pt")
+    t0 = time.perf_counter()
+    pm.spawn(ddp_rank, DDP_WORLD, [dev] * DDP_WORLD, backend="gloo", args=(config, pattern))
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(pattern % r, weights_only=False) for r in range(DDP_WORLD)]
+    if any(r["initial_checksum"] != initial for r in ranks):
+        fail("ddp: the ranks' initial students differ from the reference's")
+    merged = {}
+    for fault in ("sound", *DDP_FAULTS):
+        recs = [r[fault] for r in ranks]
+        got = {k: torch.cat([r[k] for r in recs]) for k in ("exp_avg", "exp_avg_sq", "ema")}
+        got.update(student=recs[0]["student"], losses=recs[0]["losses"])
+        readings = ddp_readings(torch, got, ref[DDP_STEPS if fault == "sound" else 1], before)
+        readings["replicas_equal"] = len({r["checksum"] for r in recs}) == 1
+        every = torch.arange(0, recs[0]["student"].numel() * DDP_STRIDE, DDP_STRIDE)
+        readings["positions_cover"] = bool(torch.equal(
+            torch.cat([r["positions"] for r in recs]), every))
+        merged[fault] = readings
+    sound = merged["sound"]
+    expected = {"flash_mha_packed": 16 * 4 * DDP_STEPS, "flash_self_attention": DDP_STEPS,
+                "fused_mrf_level": 0, "stft_magnitude": DDP_STEPS, "dilated_conv1d": 0}
+    per_rank = [{"launches": r["sound"]["launches"], "peak_memory_gb": r["sound"]["peak_memory_gb"],
+                 "held_bytes": r["sound"]["held_bytes"],
+                 "step_seconds": r["sound"]["step_seconds"],
+                 "create_seconds": r["create_seconds"]} for r in ranks]
+
+    cli = ddp_cli(torch, out_dir, torch.cuda.device_count())
+    line = {
+        "phase": "ddp", "config": "PipelineConfig() light UNet + teacher, T5-large; fp32 "
+        "trained roles under bf16 autocast, bf16 frozen modules; stage 2 Heun, MSE, constant "
+        f"lr {TRAIN_LR}; global batch {DDP_WORLD} x {DDP_MICRO}",
+        "world": DDP_WORLD, "backend": "gloo, ranks sharing cuda:0", "steps": DDP_STEPS,
+        "compared_every": DDP_STRIDE, "limits": TOL_DDP,
+        "single_rank": single, "nccl_world_1": nccl, "sound": sound,
+        "faults": {f: merged[f] for f in DDP_FAULTS}, "ranks": per_rank,
+        "expected_launches_per_rank": expected, "cli_nccl": cli,
+        "spawn_seconds": spawn_s, "phase_seconds": time.perf_counter() - t_phase,
+    }
+    emit(line)
+    if sound["over_limit"] or not sound["replicas_equal"] or not sound["positions_cover"]:
+        fail(f"ddp: the two ranks differ from the single-rank run: {sound}")
+    if nccl["over_limit"]:
+        fail(f"ddp: the NCCL group of world size 1 differs from the single-rank run: {nccl}")
+    missed = [f for f in DDP_FAULTS if not merged[f]["over_limit"]]
+    if missed:
+        fail(f"ddp: the limits pass the planted faults {missed}")
+    for r, rec in enumerate(per_rank):
+        if rec["launches"] != expected:
+            fail(f"ddp rank {r}: launch counts {rec['launches']} != expected {expected}")
+    return line, {k: sum(r["launches"][k] for r in per_rank) for k in expected}
+
+
+def ddp_cli(torch, out_dir, cards):
+    """The training CLI with --num_devices <cards> over NCCL at full width
+    (tools/ddp_scaling.py, two steps) where several cards are present; else
+    the record that it was not run."""
+    if cards < 2:
+        return {"run": False, "reason": f"{cards} card present: N > 1 over NCCL not run"}
+    from consistencytta_torch.tools.ddp_scaling import cli_run
+
+    try:
+        return {"run": True, **cli_run(os.path.join(out_dir, "cli"), cards)}
+    except RuntimeError as e:
+        fail(f"ddp: the CLI over NCCL on {cards} cards: {e}")
+
+
 def main() -> None:
     try:
         import torch
@@ -2070,6 +2389,15 @@ def main() -> None:
                                              read_counters, fused_levels)
     finally:
         shutil.rmtree(fit_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # -- ddp: data-parallel training, two gloo ranks sharing the card ---------------
+    ddp_dir = os.path.join(root, "outputs", f"chip_smoke_ddp_{os.getpid()}")
+    os.makedirs(ddp_dir)
+    try:
+        _, ddp_launches = ddp_phase(torch, config, torch.device("cuda:0"), ddp_dir)
+    finally:
+        shutil.rmtree(ddp_dir, ignore_errors=True)
 
     # -- summary ----------------------------------------------------------------
     sources = {
@@ -2100,7 +2428,8 @@ def main() -> None:
             "serve": "the serve run's two CLI runs (the second evaluating)",
             "eval": "the eval run's evaluate_existing",
             "fit": "the fit run's five training CLI runs and its inference CLI run",
-            "stage3": "the stage3 run's six training CLI runs and its inference CLI run"}
+            "stage3": "the stage3 run's six training CLI runs and its inference CLI run",
+            "ddp": f"the ddp run's {DDP_WORLD} ranks' {DDP_STEPS} sound steps"}
     kernels = []
     for name, (src, rep) in sources.items():
         r = results[name]
@@ -2109,7 +2438,7 @@ def main() -> None:
         paths = {"generate": launches[counter], "train": train_launches[counter],
                  "serve": serve_launches[counter], "eval": eval_launches[counter],
                  "fit": fit_train[counter] + fit_infer[counter],
-                 "stage3": s3_train[counter] + s3_infer[counter]}
+                 "stage3": s3_train[counter] + s3_infer[counter], "ddp": ddp_launches[counter]}
         if counter == "stft_magnitude":
             # training runs take N = 1024, the inference CLI's eval mels N = 512
             n512 = name != counter

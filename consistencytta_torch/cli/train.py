@@ -18,19 +18,26 @@ towers of `--clap_checkpoint` (loaded first; a missing file raises before
 any work), with LoRA, or with the VAE decoder trained beside the student
 (`--finetune_vae`, which requires the clap loss and excludes LoRA). Each
 run appends its flags to `<output_dir>/summary.jsonl` (the replay the
-inference CLI reads), trains on one card with a global batch of per-device
-batch times accumulation steps, validates every epoch and writes checkpoint
-directories (`io/checkpoints.py`): `best`, `epoch_<n>`, `step_<n>`;
-`--resume_from_checkpoint` restores one.
+inference CLI reads), trains with a global batch of per-device batch times
+devices times accumulation steps, validates every epoch and writes
+checkpoint directories (`io/checkpoints.py`): `best`, `epoch_<n>`,
+`step_<n>`; `--resume_from_checkpoint` restores one.
 
-Refused before any work, with `NotImplementedError`: more than one device
-(`--num_devices` > 1, DDP with ZeRO-1; ROADMAP.md item 2d).
+`--num_devices N` trains data-parallel on N cards, one process a rank over
+NCCL (rank r on cuda:r; N from 1 to the cards present, else ValueError
+before any work), or with `--device cpu` on N gloo ranks of the host
+(parallel/mesh.py): each rank takes its rows of every global batch, the
+gradients are all-reduced, and the AdamW moments and EMA shadows are
+ZeRO-1 sharded. Rank 0 writes the log and the checkpoints, in the
+single-rank layout, and a checkpoint resumes at any N. Without the flag,
+or with 1, the run stays in this process.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -86,7 +93,8 @@ def _build_parser():
     p.add_argument("--per_device_eval_batch_size", type=int, default=2)
     p.add_argument("--gradient_accumulation_steps", type=int, default=4)
     p.add_argument("--num_devices", type=int, default=None,
-                   help="devices to train on; only 1 is ported")
+                   help="cards to train on data-parallel (with --device cpu: gloo ranks "
+                        "of the host); default 1")
     p.add_argument("--no_remat", action="store_true",
                    help="do not recompute the student's forward in its backward")
     p.add_argument("--learning_rate", type=float, default=3e-5)
@@ -180,15 +188,19 @@ def schedule_from_args(args, scheduler_config):
 def check_args(args) -> None:
     """Refuse what the port does not run, and the JAX CLI's invalid
     combinations, before any work is done."""
+    import torch
+
     from consistencytta_torch.training.optim import SUPPORTED_LR_SCHEDULES
 
     if args.num_devices is not None:
-        if args.num_devices > 1:
-            raise NotImplementedError(
-                f"--num_devices {args.num_devices}: training on more than one device (DDP "
-                "with a ZeRO-1 optimizer shard) is not ported yet (ROADMAP.md item 2d)")
-        if args.num_devices < 1:
-            raise ValueError(f"--num_devices {args.num_devices} out of range")
+        cpu = args.device == "cpu"
+        present = os.cpu_count() if cpu else torch.cuda.device_count()
+        if not 1 <= args.num_devices <= present:
+            raise ValueError(f"--num_devices {args.num_devices} out of range (1..{present} "
+                             f"{'host cores' if cpu else 'cards present'})")
+        if args.num_devices > 1 and args.device not in ("cpu", "cuda"):
+            raise ValueError(f"--num_devices {args.num_devices} takes --device cuda (ranks on "
+                             f"cuda:0..) or cpu, not {args.device}")
     assert args.freeze_text_encoder, (
         "Text encoder finetuning has not been implemented; pass --freeze_text_encoder.")
     # the SD-2.1 noise-schedule constants are built into PipelineConfig
@@ -228,15 +240,18 @@ class TrainRun:
     resume_seconds: Optional[float] = None
 
 
-def prepare(argv=None) -> TrainRun:
+def prepare(argv=None, mesh=None) -> TrainRun:
     """Parse and check the flags, write the replay, build the pipeline from
     its checkpoints, the loaders, the state and the step functions, and
-    restore --resume_from_checkpoint."""
+    restore --resume_from_checkpoint. With `mesh` (parallel/mesh.py), as
+    that rank of a --num_devices run: on the mesh's device, the state
+    ZeRO-1 sharded after the resume; rank 0 writes the replay."""
     import torch
 
     from consistencytta_torch.cli.common import append_config_replay, build_pipeline_config
     from consistencytta_torch.io.checkpoints import load_checkpoint, load_frozen_and_roles
     from consistencytta_torch.models.pipeline import Pipeline
+    from consistencytta_torch.parallel.mesh import shard_train_state
     from consistencytta_torch.text.tokenizer import load_clap_tokenizer, load_tokenizer
     from consistencytta_torch.training import step as tstep
     from consistencytta_torch.training.clap_loss import build_clap_loss
@@ -252,10 +267,16 @@ def prepare(argv=None) -> TrainRun:
 
     args = parse_args(argv)
     check_args(args)
-    dev = resolve_device(args.device)
+    n_dev = args.num_devices or 1
+    if (mesh.world if mesh is not None else 1) != n_dev:
+        raise ValueError(f"--num_devices {n_dev} runs one process a rank: through main, or "
+                         "prepare(argv, mesh) on each rank of a mesh of that size")
+    dev = resolve_device(args.device if mesh is None else mesh.device)
+    main_rank = mesh is None or mesh.is_main
     if args.output_dir is None:
         args.output_dir = f"saved/stage{args.stage}_run"
-    append_config_replay(args.output_dir, args)
+    if main_rank:
+        append_config_replay(args.output_dir, args)
 
     seed = args.seed if args.seed is not None else 0
     towers, clap_tokenizer = None, None
@@ -267,7 +288,8 @@ def prepare(argv=None) -> TrainRun:
 
         towers = load_clap_towers(args.clap_checkpoint, dev)
         clap_tokenizer = load_clap_tokenizer(towers[1].text_branch.config.vocab_size)
-        print(f"loaded the CLAP towers from {args.clap_checkpoint}")
+        if main_rank:
+            print(f"loaded the CLAP towers from {args.clap_checkpoint}")
     config = build_pipeline_config(args)
     dtype = torch.bfloat16 if args.use_bf16 else torch.float32
     if args.use_lora:
@@ -283,10 +305,11 @@ def prepare(argv=None) -> TrainRun:
         vae_checkpoint=args.vae_checkpoint,
         random_init_seed=seed if args.random_init else None)
     for part, path in loaded.items():
-        print(f"loaded {part} from {path}")
+        if main_rank:
+            print(f"loaded {part} from {path}")
 
     tokenizer = load_tokenizer(args.text_encoder_name, vocab_size=config.t5.vocab_size)
-    global_batch = args.per_device_train_batch_size * args.gradient_accumulation_steps
+    global_batch = args.per_device_train_batch_size * n_dev * args.gradient_accumulation_steps
     train_ds = T2ADataset.from_json(
         args.train_file, args.text_column, args.audio_column, args.num_examples,
         prefix=args.prefix, segment_length=config.segment_samples)
@@ -300,8 +323,8 @@ def prepare(argv=None) -> TrainRun:
                           clap_tokenizer=clap_tokenizer)
 
     def make_eval_loader():
-        return DataLoader(val_ds, tokenizer, args.per_device_eval_batch_size, args.text_len,
-                          augment=False, shuffle=False, seed=seed,
+        return DataLoader(val_ds, tokenizer, args.per_device_eval_batch_size * n_dev,
+                          args.text_len, augment=False, shuffle=False, seed=seed,
                           clap_tokenizer=clap_tokenizer)
 
     steps_per_epoch = max(len(train_ds) // global_batch, 1)
@@ -341,13 +364,15 @@ def prepare(argv=None) -> TrainRun:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         resume_seconds = time.perf_counter() - t0
+    if mesh is not None:
+        shard_train_state(state, mesh)
 
     step_every = args.checkpointing_steps
     loop_config = LoopConfig(
         num_epochs=args.num_train_epochs,
         output_dir=args.output_dir,
         save_every=args.save_every,
-        eval_batches=max(100 // args.per_device_eval_batch_size, 1),
+        eval_batches=max(100 // (args.per_device_eval_batch_size * n_dev), 1),
         starting_epoch=args.starting_epoch,
         seed=seed,
         max_steps=args.max_train_steps,
@@ -355,7 +380,9 @@ def prepare(argv=None) -> TrainRun:
         step_checkpoint_every=int(step_every) if str(step_every).isdigit() else None,
         use_wandb=args.with_tracking,
         wandb_kwargs={"project": "consistencytta_torch", "config": vars(args)},
-        device=args.device,
+        device=str(dev),
+        mesh=mesh,
+        accum_steps=args.gradient_accumulation_steps,
     )
     return TrainRun(args, pipeline, state, step_fn, validate_fn, make_train_loader,
                     make_eval_loader, loop_config, resume_seconds)
@@ -369,8 +396,24 @@ def run(r: TrainRun):
                       r.make_eval_loader, r.loop_config, r.pipeline.config)
 
 
+def _rank_main(mesh, argv):
+    run(prepare(argv, mesh))
+
+
 def main(argv=None):
-    return run(prepare(argv))
+    """Train; returns the final state, or None from a --num_devices N > 1
+    run, whose ranks run in their own processes."""
+    from consistencytta_torch.parallel.mesh import spawn
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse_args(argv)
+    check_args(args)
+    n = args.num_devices or 1
+    if n == 1:
+        return run(prepare(argv))
+    devices = ["cpu"] * n if args.device == "cpu" else [f"cuda:{i}" for i in range(n)]
+    spawn(_rank_main, n, devices, args=(argv,))
+    return None
 
 
 if __name__ == "__main__":

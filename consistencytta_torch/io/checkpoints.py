@@ -68,6 +68,7 @@ from torch import nn
 
 from consistencytta_torch.configs import UNetConfig
 from consistencytta_torch.nn.vae import AutoencoderKLDecoder
+from consistencytta_torch.parallel.mesh import gathered_state
 from consistencytta_torch.training.lora import merged_state_dict
 from consistencytta_torch.utils import cast_module
 
@@ -375,7 +376,13 @@ def save_checkpoint(directory: str, state, pipeline=None, config=None,
                     retries: int = 3) -> None:
     """Write a training checkpoint directory (the layout in the module's
     docstring). `pipeline` adds the teacher and the T5; `config` (a
-    PipelineConfig or a dict) is written as config.json."""
+    PipelineConfig or a dict) is written as config.json. A ZeRO-1 state
+    (parallel/mesh.py) is gathered first, every rank taking part, and rank
+    0 writes the single-rank files."""
+    if getattr(state, "zero1", None) is not None:
+        state = gathered_state(state)
+        if state is None:
+            return
     os.makedirs(directory, exist_ok=True)
     _save(model_state_dict(state, pipeline), os.path.join(directory, MODEL_FILE), retries)
     optimizer = state.optimizer.state_dict()
@@ -395,7 +402,10 @@ def load_checkpoint(directory: str, state) -> Optional[dict]:
     roles, an FTVAE state's decoder pair and its EMA, the optimizer, the LR
     schedule and the step. A LoRA state takes its factors from optimizer.bin
     and keeps its base, which must be the one the checkpoint's roles were
-    merged from. Returns config.json's dict, or None."""
+    merged from. Returns config.json's dict, or None. A ZeRO-1 state is
+    restored before `shard_train_state`, which shards what it restored."""
+    if getattr(state, "zero1", None) is not None:
+        raise ValueError("load the checkpoint into the replicated state, then shard it")
     dev = next(state.student.parameters()).device
     load = lambda name: torch.load(os.path.join(directory, name), map_location=dev,
                                    weights_only=True)

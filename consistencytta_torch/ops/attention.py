@@ -26,8 +26,11 @@ a sliced batch), but the feature axis must be contiguous: `kernel_layout`
 turns each view into the (features, S, B) dims and byte strides of the tensor
 map that the C entry point encodes at every launch (three maps, a few
 microseconds of host time). Gradients flow through a
-`torch.autograd.Function` whose backward differentiates the plain version, as
-the JAX package's custom VJP does with its einsum backward.
+`torch.autograd.Function` whose backward is the JAX package's analytic one
+(`_flash_bwd`): the float32 softmax recomputed over chunks of at most 512
+queries (`attention_backward`), so that at most [BH, 512, S] float32 logits
+are live where autograd through the plain version would hold several
+[BH, S, S] ones (2.7 GB each for K1 at level 0 and micro-batch 8).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch
 from consistencytta_torch.ops import _build
 
 LOG2E = 1.4426950408889634
+BACKWARD_CHUNK = 512  # queries a chunk of the analytic backward, as in the JAX package
 
 
 def attention_plain(q, k, v, scale: float):
@@ -56,6 +60,37 @@ def flash_mha_packed_plain(q, k, v, heads: int, scale: float):
     split = lambda t: t.reshape(b, t.shape[1], heads, d).transpose(1, 2)
     out = attention_plain(split(q), split(k), split(v), scale)
     return out.transpose(1, 2).reshape(b, s, hd)
+
+
+def attention_backward(q, k, v, g, scale: float, chunk: int = BACKWARD_CHUNK):
+    """(dq, dk, dv) of `attention_plain` over [..., S, D] at the output
+    gradient g: the JAX package's analytic backward. Per chunk of up to
+    `chunk` queries, in float32: p = softmax(q k^T * scale), dv += p^T g,
+    ds = p * (dp - sum(dp * p)) with dp = g v^T, dq = ds k * scale,
+    dk += ds^T q * scale. The gradients come back in the inputs' dtypes."""
+    k32, v32 = k.float(), v.float()
+    dk, dv = torch.zeros_like(k32), torch.zeros_like(v32)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    for i in range(0, q.shape[-2], chunk):
+        qc, gc = q[..., i:i + chunk, :].float(), g[..., i:i + chunk, :].float()
+        p = torch.softmax(torch.matmul(qc, k32.transpose(-1, -2)) * scale, dim=-1)
+        dv += torch.matmul(p.transpose(-1, -2), gc)
+        ds = torch.matmul(gc, v32.transpose(-1, -2))
+        ds.sub_((ds * p).sum(-1, keepdim=True)).mul_(p)
+        dq[..., i:i + chunk, :] = torch.matmul(ds, k32) * scale
+        dk += torch.matmul(ds.transpose(-1, -2), qc) * scale
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+def mha_packed_backward(q, k, v, g, heads: int, scale: float, chunk: int = BACKWARD_CHUNK):
+    """(dq, dk, dv) of `flash_mha_packed_plain` on the packed [B, S, H*d]
+    layout: heads folded into the batch, `attention_backward`, unfolded (the
+    JAX package's `_flash_nhd_bwd`)."""
+    b, s, hd = q.shape
+    d = hd // heads
+    fold = lambda t: t.reshape(b, s, heads, d).transpose(1, 2)
+    grads = attention_backward(fold(q), fold(k), fold(v), fold(g), scale, chunk)
+    return tuple(t.transpose(1, 2).reshape(b, s, hd) for t in grads)
 
 
 def kernel_layout(name, tensors, shape):
@@ -160,11 +195,8 @@ class _MhaPacked(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
-            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
-            out = flash_mha_packed_plain(qq, kk, vv, ctx.heads, ctx.scale)
-            dq, dk, dv = torch.autograd.grad(out, (qq, kk, vv), g)
-        return dq, dk, dv, None, None
+        with torch.autocast("cuda", enabled=False):  # float32 products
+            return (*mha_packed_backward(q, k, v, g, ctx.heads, ctx.scale), None, None)
 
 
 class _SelfAttention(torch.autograd.Function):
@@ -177,11 +209,8 @@ class _SelfAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
-            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
-            out = attention_plain(qq, kk, vv, ctx.scale)
-            dq, dk, dv = torch.autograd.grad(out, (qq, kk, vv), g)
-        return dq, dk, dv, None
+        with torch.autocast("cuda", enabled=False):  # float32 products
+            return (*attention_backward(q, k, v, g, ctx.scale), None)
 
 
 def flash_mha_packed(q, k, v, heads: int, scale: float):

@@ -4,11 +4,16 @@ the summary.jsonl log (the port's copy of the JAX package's
 training/loop.py, itself the reference's train.py main loop).
 
 One `torch.Generator` on the run's device, seeded from `LoopConfig.seed`,
-feeds every step and every validation. `float(loss)` waits for each step;
-the loader runs on the host between steps. Each epoch's record carries,
-besides the JAX package's keys, the seconds spent in the loader (host
-reads, mixing, tokenizing and the copy to the device), in the steps, in
-validation and in checkpoint writes.
+feeds every step and every validation. With `LoopConfig.mesh` (one rank of
+a data-parallel run, parallel/mesh.py) every rank reads the same global
+batch and keeps its rows, the generator draws at the global batch and
+keeps the rank's rows (`RankGenerator`), the validation losses are
+averaged over the ranks, rank 0 writes summary.jsonl, and every rank takes
+part in a checkpoint's gather while rank 0 writes it. `float(loss)` waits
+for each step; the loader runs on the host between steps. Each epoch's
+record carries, besides the JAX package's keys, the seconds spent in the
+loader (host reads, mixing, tokenizing and the copy to the device), in the
+steps, in validation and in checkpoint writes.
 """
 
 from __future__ import annotations
@@ -22,6 +27,13 @@ import numpy as np
 import torch
 
 from consistencytta_torch.io.checkpoints import SummaryWriter, save_checkpoint
+from consistencytta_torch.parallel.mesh import (
+    Mesh,
+    RankGenerator,
+    agree,
+    all_reduce_mean,
+    shard_batch,
+)
 from consistencytta_torch.training.data import to_device
 from consistencytta_torch.utils import resolve_device
 
@@ -44,6 +56,8 @@ class LoopConfig:
     use_wandb: bool = False  # --with_tracking: mirror the log to wandb
     wandb_kwargs: Optional[dict] = None
     device: str = "cuda"
+    mesh: Optional[Mesh] = None  # this rank of a data-parallel run
+    accum_steps: int = 1  # micro-batches a step: how a global batch splits over ranks
 
 
 def train_loop(
@@ -65,10 +79,17 @@ def train_loop(
     teacher and T5 besides the state (`io/checkpoints.save_checkpoint`).
     The best checkpoint follows `loss_w_teacher` (stage 2), else
     `val_loss` (stage 1), else the epoch's mean train loss."""
+    mesh = config.mesh
+    main_rank = mesh is None or mesh.is_main
     writer = SummaryWriter(config.output_dir, use_wandb=config.use_wandb,
-                           wandb_kwargs=config.wandb_kwargs)
+                           wandb_kwargs=config.wandb_kwargs) if main_rank else None
     dev = resolve_device(config.device)
     generator = torch.Generator(device=dev).manual_seed(config.seed)
+    if mesh is not None:
+        generator = RankGenerator(generator, mesh.rank, mesh.world)
+
+    def rows(batch, accum=1):
+        return batch if mesh is None else shard_batch(batch, mesh, accum)
     best_eval_loss = float("inf")
     reached_max = False
 
@@ -91,7 +112,7 @@ def train_loop(
             batch = next(batches, None)
             if batch is None:
                 break
-            batch = to_device(batch, dev)
+            batch = to_device(rows(batch, config.accum_steps), dev)
             t1 = time.perf_counter()
             metrics = step_fn(state, batch, generator=generator)
             n_steps += 1
@@ -101,7 +122,7 @@ def train_loop(
             if np.isfinite(loss):
                 train_loss += loss
             global_step = int(state.step)
-            if n_steps % config.log_every == 0:
+            if n_steps % config.log_every == 0 and main_rank:
                 writer.log({"epoch": epoch, "step": global_step, "train_loss": loss})
             if config.step_checkpoint_every and global_step % config.step_checkpoint_every == 0:
                 save(f"step_{global_step}")
@@ -119,7 +140,13 @@ def train_loop(
             for i, batch in enumerate(make_eval_loader()):
                 if config.eval_batches is not None and i >= config.eval_batches:
                     break
-                losses = validate_fn(state, to_device(batch, dev), generator=generator)
+                losses = validate_fn(state, to_device(rows(batch), dev), generator=generator)
+                if mesh is not None:
+                    names = sorted(losses)
+                    means = torch.stack([torch.as_tensor(losses[k], device=dev).float()
+                                         for k in names])
+                    all_reduce_mean([means], mesh)
+                    losses = dict(zip(names, means))
                 for k, v in losses.items():
                     totals[k] = totals.get(k, 0.0) + float(v)
                 n_eval += 1
@@ -132,11 +159,15 @@ def train_loop(
         else:
             loss_to_track = record["train_loss"]
 
-        if config.save_best and loss_to_track < best_eval_loss:
+        better = loss_to_track < best_eval_loss
+        if mesh is not None:  # the same decision on every rank
+            better = agree(better, mesh)
+        if config.save_best and better:
             best_eval_loss = loss_to_track
             save("best")
         if (epoch + 1) % config.save_every == 0:
             save(f"epoch_{epoch + 1}")
-        writer.log({**record, **seconds})
+        if main_rank:
+            writer.log({**record, **seconds})
 
     return state

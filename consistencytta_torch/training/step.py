@@ -20,12 +20,19 @@ update. The state is updated in place.
 
 Random draws come from an explicit `torch.Generator` on the pipeline's
 device, or are passed in as tensors (`draws`), which is how the tests feed
-this package and the JAX package the same numbers. Keys of `draws`:
+this package and the JAX package the same numbers. A rank of a
+data-parallel run passes a `parallel.mesh.RankGenerator`: each draw is then
+made at the global micro-batch and the rank keeps its rows, so that a row's
+noise is the single-rank run's. Keys of `draws`:
 `posterior_noise` (the latent's shape), `eps` (the same), `w` [B] (uniform
 in [0, 1), before the scaling by `max_rand_guidance_scale`), `u` [B] (stage
 2: schedule index) or `t` [B] (stage 1: DDPM timestep), `drop` [B] bool
 (`uncondition`). With `accum_steps` > 1, `draws` is a list with one
 such dict per micro-batch.
+
+A ZeRO-1 state (`parallel/mesh.py:shard_train_state`, one rank of several)
+takes the update through its `zero1`: the gradients and the loss averaged
+over the ranks, the rank's share of AdamW and of the EMA shadows.
 
 A LoRA state (`training/lora.py:init_lora_state`) holds rank-r factors in
 its three roles and the frozen base student in `lora_base`; every query of
@@ -49,6 +56,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from consistencytta_torch.models.pipeline import Pipeline
+from consistencytta_torch.parallel.mesh import RankGenerator
 from consistencytta_torch.ops.schedulers import (
     DDIMSchedule,
     DDPMSchedule,
@@ -82,6 +90,7 @@ class TrainState:
     lr_scheduler: torch.optim.lr_scheduler.LambdaLR
     max_grad_norm: Optional[float] = None
     lora_base: Optional[nn.Module] = None  # set for a LoRA state: the frozen student
+    zero1: Optional[object] = None  # a rank's ZeRO-1 update (parallel/mesh.py)
 
     @classmethod
     def create(cls, pipeline: Pipeline, config: OptimizerConfig = OptimizerConfig(),
@@ -158,10 +167,17 @@ def role_unet(state: TrainState, role: nn.Module):
 
 class _Sampler:
     """The step's random draws: a tensor passed in under its name wins, else
-    the generator draws on the device."""
+    the generator draws on the device; a `RankGenerator` draws for the
+    global micro-batch and keeps the rank's rows."""
 
     def __init__(self, device, generator, draws: Draws):
+        self.ranks = generator if isinstance(generator, RankGenerator) else None
+        if self.ranks is not None:
+            generator = generator.generator
         self.device, self.generator, self.draws = device, generator, draws or {}
+
+    def _rows(self, draw, b):
+        return draw(b) if self.ranks is None else self.ranks.rows(draw, b)
 
     def _given(self, name, dtype):
         v = self.draws.get(name)
@@ -170,26 +186,38 @@ class _Sampler:
     def normal(self, name, shape):
         v = self._given(name, torch.float32)
         if v is None:
-            v = torch.randn(shape, generator=self.generator, device=self.device)
+            v = self._rows(lambda n: torch.randn((n, *shape[1:]), generator=self.generator,
+                                                 device=self.device), shape[0])
         return v
 
     def uniform(self, name, b):
         v = self._given(name, torch.float32)
         if v is None:
-            v = torch.rand(b, generator=self.generator, device=self.device)
+            v = self._rows(lambda n: torch.rand(n, generator=self.generator,
+                                                device=self.device), b)
         return v
 
     def randint(self, name, b, high):
         v = self._given(name, torch.long)
         if v is None:
-            v = torch.randint(0, high, (b,), generator=self.generator, device=self.device)
+            v = self._rows(lambda n: torch.randint(0, high, (n,), generator=self.generator,
+                                                   device=self.device), b)
         return v
 
     def bernoulli(self, name, b, p):
         v = self._given(name, torch.bool)
         if v is None:
-            v = torch.rand(b, generator=self.generator, device=self.device) < p
+            v = self._rows(lambda n: torch.rand(n, generator=self.generator,
+                                                device=self.device), b) < p
         return v
+
+    def encode(self, pipeline: Pipeline, wav) -> torch.Tensor:
+        """The sampled latent of `wav`: the posterior noise given, else drawn
+        here for a rank (at the global micro-batch), else by the encoder."""
+        noise = self.draws.get("posterior_noise")
+        if noise is None and self.ranks is not None:
+            noise = self.normal("posterior_noise", pipeline.latent_shape(len(wav)))
+        return pipeline.encode_audio(wav, noise=noise, generator=self.generator)
 
 
 def _rows(cond: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -237,9 +265,7 @@ def consistency_forward(
     n = schedule.num_steps if cfg.use_edm else schedule.num_inference_steps
 
     with torch.no_grad():
-        z0 = pipeline.encode_audio(
-            micro["wav"], noise=sampler.draws.get("posterior_noise"), generator=generator
-        )
+        z0 = sampler.encode(pipeline, micro["wav"])
         text_cf, mask_cf, text, mask_c = pipeline.encode_text_cfg(ids, mask, uids, umask)
         # adjacent solver steps t_{n+1} = t[u], t_n = t[u + 1]
         u = sampler.randint("u", b, n - 1)
@@ -310,12 +336,17 @@ def accumulate_gradients(state: TrainState, micro_loss: Callable, batch: Batch, 
 def guarded_update(state: TrainState, loss: torch.Tensor) -> bool:
     """One optimizer update from the accumulated gradients, unless the loss
     or a gradient is non-finite: then student and optimizer stay as they
-    are. Returns whether the update was taken.
+    are. Returns whether the update was taken. A ZeRO-1 state takes the
+    rank's part of it (`parallel.mesh.Zero1.update`), from the gradients
+    and the loss averaged over the ranks (`loss` is overwritten with that
+    mean), so that every rank takes or skips it alike.
 
     A frozen leaf of the student (the Fourier guidance projection) takes the
     update of a zero gradient, as in the JAX package, which stops that
     gradient but keeps the leaf in AdamW: the moments stay zero and the
     decoupled weight decay still shrinks it by lr * weight_decay."""
+    if state.zero1 is not None:
+        return state.zero1.update(state, loss)
     params = [p for group in state.optimizer.param_groups for p in group["params"]]
     for p in params:
         if p.grad is None and not p.requires_grad:
@@ -410,9 +441,7 @@ def build_validation_step(
         sampler = _Sampler(dev, generator, draws)
         ids, mask, uids, umask = _text(pipeline, batch)
         b = ids.shape[0]
-        z0 = pipeline.encode_audio(
-            batch["wav"], noise=sampler.draws.get("posterior_noise"), generator=generator
-        )
+        z0 = sampler.encode(pipeline, batch["wav"])
         text_cf, mask_cf, text, mask_c = pipeline.encode_text_cfg(ids, mask, uids, umask)
         w = _guidance(sampler, cfg, b)
         eps = sampler.normal("eps", z0.shape)
@@ -483,9 +512,7 @@ def guided_distill_loss(
     ids, mask, uids, umask = _text(pipeline, micro)
     b = ids.shape[0]
     with torch.no_grad():
-        z0 = pipeline.encode_audio(
-            micro["wav"], noise=sampler.draws.get("posterior_noise"), generator=generator
-        )
+        z0 = sampler.encode(pipeline, micro["wav"])
         text_cf, mask_cf, text, mask_c = pipeline.encode_text_cfg(ids, mask, uids, umask)
         t = sampler.randint("t", b, n_train)
         eps = sampler.normal("eps", z0.shape)

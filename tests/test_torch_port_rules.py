@@ -41,7 +41,8 @@ def test_port_imports_no_jax():
                 "evaluation/vggish.py", "evaluation/clap_model.py", "evaluation/clap.py",
                 "evaluation/harness.py", "cli/evaluate_existing.py",
                 "tools/random_eval_checkpoints.py", "training/lora.py", "training/loop.py",
-                "cli/train.py", "training/clap_loss.py", "training/ftvae.py"):
+                "cli/train.py", "training/clap_loss.py", "training/ftvae.py",
+                "parallel/__init__.py", "parallel/mesh.py", "tools/ddp_scaling.py"):
         assert os.path.join("consistencytta_torch", new) in names
     bad = {}
     for path in files:

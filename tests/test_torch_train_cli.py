@@ -149,7 +149,7 @@ def test_schedules_match_jax(flags):
      FileNotFoundError, "clap_checkpoint"),
     (["--finetune_vae"], ValueError, "finetune_vae requires --loss_type clap"),
     (["--loss_type", "clap", "--use_lora", "--finetune_vae"], ValueError, "exclusive"),
-    (["--num_devices", "2"], NotImplementedError, "2d"),
+    (["--num_devices", "2"], ValueError, r"--num_devices 2 out of range \(1..0 cards"),
     (["--num_devices", "0"], ValueError, "num_devices"),
     (["--stage", "1", "--use_lora"], ValueError, "use_lora"),
     (["--scheduler_name", "some/other-model"], ValueError, "scheduler_name"),
