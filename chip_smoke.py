@@ -8,8 +8,8 @@ source, in parallel, into `build/`), then runs ten phases, each printing
 JSON lines:
 
   env      card name and power limit (nvidia-smi), torch / CUDA versions,
-           kernel build seconds, and the attention, MRF and STFT kernels'
-           registers, spills and shared memory;
+           kernel build seconds, and the attention, MRF, STFT and dilated-conv
+           kernels' registers, spills and shared memory;
   kernel   each kernel against its plain PyTorch version on the same inputs
            at the shapes the driven paths give it (bf16; batch 32 and 1 for
            the generate path, 16 and 8 for the train step, 4 and 2 for the
@@ -41,7 +41,11 @@ JSON lines:
            512-point filter (B = 32 and 1). The attention kernel also runs at
            batch 64, the CFG teacher's batch behind a generate batch of 32. The
            standalone dilated conv runs at B = 32, C = 64, L = 81936 for its
-           six (k, d) pairs, beside F.conv1d;
+           six (k, d) pairs, beside F.conv1d, with its CUDA-graph device time
+           and host time a launch. A kernel's summed bound is the sum of
+           its shapes' bounds, each shape taken alone (not one roofline of
+           the summed bytes and operations, which is lower where some shapes
+           are bound by bytes and others by operations);
   main     the main path: Pipeline.create at the full PipelineConfig
            (random weights from a seed, bf16) and build_generate_fn(num_steps=1)
            answering hash-tokenized prompts at batch 1 and batch 32, with the
@@ -1651,11 +1655,12 @@ def main() -> None:
         "clocks_power": nvidia_smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu"),
         # registers, spills and shared memory of the attention kernels: what the
         # loaded library reports, and what ptxas printed when it was built; of
-        # the MRF and STFT kernels, what ptxas printed
+        # the MRF, STFT and dilated-conv kernels, what ptxas printed
         "attention_kernels": att.kernel_resources(),
         "attention_ptxas": _build.resources("flash_attention"),
         "mrf_ptxas": _build.resources("mrf"),
         "stft_ptxas": _build.resources("stft"),
+        "dilated_conv_ptxas": _build.resources("dilated_conv"),
     })
 
     # -- kernels against their plain versions ---------------------------------
@@ -1683,7 +1688,8 @@ def main() -> None:
         version with a planted fault: a wrong scale, a dropped tile, ...)
         fails the same tolerance, so that the tolerance can tell a broken
         kernel from rounding at this shape. The kernel's summed times count
-        this shape `weight` times (default: its launches per main-path call)."""
+        this shape `weight` times (default: its launches per main-path call), and
+        its bound is the sum of the shapes' bounds, each computed alone."""
         weight = per_call if weight is None else weight
         err, scale, l2 = compare(got, want)
         ok = within(got, want, tol_max)
@@ -1706,12 +1712,14 @@ def main() -> None:
             fail(f"{name} {shape}: the tolerance passes the planted faults {missed}")
         r = results.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                                       "library_ms": 0.0, "bound_ms": 0.0,
-                                      "flops": 0.0, "bytes": 0.0, "peak": peak})
+                                      "bound_bytes_ms": 0.0, "bound_operations_ms": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if weight:
             for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
-                           ("flops", flops), ("bytes", nbytes)):
+                           (f"bound_{b_by}_ms", b_ms)):
                 r[key] += weight * v
+            if extra.get("device_ms") is not None:
+                r["device_ms"] = r.get("device_ms", 0.0) + weight * extra["device_ms"]
             r["library_ms"] = None if lib_ms is None or r["library_ms"] is None \
                 else r["library_ms"] + weight * lib_ms
 
@@ -2051,7 +2059,9 @@ def main() -> None:
         del wav, got, want, mutants, frames, re, im
     # K5: the standalone dilated conv at the vocoder's C = 64 level; nothing
     # dispatches it, so it has no launches on any path and its summed times
-    # are those of the six convs run once each.
+    # are those of the six convs run once each. device_ms: a replayed CUDA
+    # graph's time, without the host's launch; plan: the tile plan's rings
+    # and shared memory (ops/dilated_conv.py:tile_plan).
     b, c, length = BATCH, 64, 81936
     x = (torch.randn(b, c, length, device=dev, generator=gen) * 0.5).bfloat16()
     for kk, d in ((3, 3), (3, 5), (7, 3), (7, 5), (11, 3), (11, 5)):
@@ -2068,11 +2078,14 @@ def main() -> None:
             "one_tap_dropped": dconv.dilated_conv1d_plain(x, one_less, d, p),
             "dilation_off_by_one": dconv.dilated_conv1d_plain(x, w, d + 1, p_off),
         }
-        plain_ms = cuda_ms(torch, plain, 3)
+        plain_ms = cuda_ms(torch, plain, 20)
+        device_ms, graph_error = graph_ms(kern)
         record("dilated_conv1d", f"B={b} C={c} L={length} k={kk} d={d}", got, want, 2e-2,
-               mutants, cuda_ms(torch, kern, 3), plain_ms, plain_ms,
+               mutants, cuda_ms(torch, kern, 20), plain_ms, plain_ms,
                float(dconv.dilated_conv_flops(b, c, length, kk)),
-               2.0 * (2 * x.numel() + w.numel()), 0, weight=1)
+               2.0 * (2 * x.numel() + w.numel()), 0, weight=1, device_ms=device_ms,
+               device_ms_error=graph_error, host_us=host_us(kern),
+               plan=dconv.check_args(x, w, d, p)._asdict())
         del w, got, want, one_less, mutants
     del x
     torch.cuda.empty_cache()
@@ -2433,7 +2446,8 @@ def main() -> None:
     kernels = []
     for name, (src, rep) in sources.items():
         r = results[name]
-        b_ms, b_by = bound(r["flops"], r["bytes"], r["peak"])
+        b_ms = r["bound_ms"]
+        b_by = max(("bytes", "operations"), key=lambda by: r[f"bound_{by}_ms"])
         counter = "stft_magnitude" if name.startswith("stft") else name
         paths = {"generate": launches[counter], "train": train_launches[counter],
                  "serve": serve_launches[counter], "eval": eval_launches[counter],
@@ -2453,6 +2467,7 @@ def main() -> None:
             **({"gradient_max_abs_err": grad_errors[name]} if name in grad_errors else {}),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": r["library_ms"],
+            **({"device_ms": r["device_ms"]} if "device_ms" in r else {}),
             "per": per.get(name, f"times per generate call at batch {BATCH}")
             + "; launches over " + ", ".join(runs[k] for k in paths),
         })

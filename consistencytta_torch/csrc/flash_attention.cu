@@ -72,21 +72,6 @@ namespace {
 constexpr float NEG = -1e30f;
 constexpr int ROW_BYTES = 128; // one 64-column bf16 row of a tile
 
-__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
-  wgmma_ss_n32(d, a, b, acc);
-}
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-  wgmma_ss_n64(d, a, b, acc);
-}
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
-  wgmma_ss_n128(d, a, b, acc);
-}
-
-// Dynamic shared memory rounded up to the 1024 bytes the swizzle needs.
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
-}
-
 // One step of the online softmax (base 2) on a warpgroup's logits of one key
 // tile. Accumulator register i of a thread holds row (i >> 1) & 1 (rows g and
 // g + 8 of its warp's 16) and key column 8 * (i >> 2) + 2 * t4 + (i & 1).

@@ -1,8 +1,10 @@
-// Hopper-only (sm_90a) building blocks of csrc/flash_attention.cu and
-// csrc/mrf.cu: mbarriers, TMA tile loads through a tensor map (and the host's
-// cuTensorMapEncodeTiled), the wgmma shared-memory descriptor for
-// 128-byte-swizzled tiles, the asynchronous warpgroup products (bf16 in, fp32
-// accumulators in registers), ldmatrix, named barriers and setmaxnreg.
+// Hopper-only (sm_90a) building blocks of csrc/flash_attention.cu,
+// csrc/mrf.cu and csrc/dilated_conv.cu: mbarriers, TMA tile loads and stores
+// through a tensor map (and the host's cuTensorMapEncodeTiled), plain bulk
+// copies, the async-proxy fence, the wgmma shared-memory descriptor for
+// 128-byte-swizzled and for unswizzled tiles, the asynchronous warpgroup
+// products (bf16 in, fp32 accumulators in registers), ldmatrix, named
+// barriers and setmaxnreg.
 //
 // Tile layout. A TMA box of R rows x 64 bf16 columns (128 bytes a row) loaded
 // with CU_TENSOR_MAP_SWIZZLE_128B lands as R consecutive 128-byte lines whose
@@ -16,6 +18,11 @@
 //     rows, leading offset = bytes from one 64-column tile to the next where
 //     the product is wider than 64; a step of 16 along the reduction adds
 //     16 * 128 bytes.
+// An unswizzled ("interleaved", layout type 0) K-major tile is made of core
+// matrices of 8 rows x 16 bytes (8 reduction values), each 128 contiguous
+// bytes: stride offset = bytes between groups of 8 rows, leading offset =
+// bytes between the two core matrices of a 16-deep step. Its start needs only
+// 16-byte alignment, so a tile stored [K/8][rows][8] can start at any row.
 
 #pragma once
 
@@ -101,6 +108,52 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map, uint64_t
       : "memory");
 }
 
+// TMA store of one box of a 3-d tensor map from shared memory, as a bulk
+// group of the issuing thread (the box's part outside the tensor is not
+// written). The shared memory must be fenced (fence_proxy_async) after the
+// threads' writes.
+__device__ __forceinline__ void tma_store_3d(const void* map, const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A contiguous copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global to shared memory, completing on `bar` like a TMA load.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma operands, TMA stores).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -136,6 +189,14 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
                : "r"(smem_u32(p)));
 }
 
+// The same, each matrix transposed: r[i] holds row lane / 4, columns
+// 2 * (lane % 4) and + 1 of matrix i's transpose.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
 // ---------------------------------------------------------------------------
 // named barriers and register reallocation
 
@@ -157,12 +218,16 @@ __device__ __forceinline__ void reg_dealloc() {
 // ---------------------------------------------------------------------------
 // wgmma
 
-// Descriptor of a 128-byte-swizzled tile at a shared-memory address; offsets
-// in bytes. Advance along the reduction by adding (bytes >> 4) to the result.
+constexpr uint64_t WGMMA_NO_SWIZZLE = 0, WGMMA_SWIZZLE_128B = 1;
+
+// Descriptor of a tile at a shared-memory address (128-byte swizzled unless
+// told otherwise); offsets in bytes. Advance the start by adding (bytes >> 4)
+// to the result.
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t leading_bytes,
-                                               uint32_t stride_bytes) {
+                                               uint32_t stride_bytes,
+                                               uint64_t layout = WGMMA_SWIZZLE_128B) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(leading_bytes >> 4) << 16) |
-         ((uint64_t)(stride_bytes >> 4) << 32) | (1ull << 62);
+         ((uint64_t)(stride_bytes >> 4) << 32) | (layout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -323,6 +388,21 @@ __device__ __forceinline__ void wgmma_rs_kmajor_n128(float (&d)[64], const uint3
       "}\n"
       : WG_D64(d, 0)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+  wgmma_ss_n32(d, a, b, acc);
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  wgmma_ss_n64(d, a, b, acc);
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+  wgmma_ss_n128(d, a, b, acc);
+}
+
+// Dynamic shared memory rounded up to the 1024 bytes the swizzle needs.
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -118,10 +118,6 @@ __device__ __forceinline__ void wgmma_rs_k(float (&d)[64], const uint32_t (&a)[4
   wgmma_rs_kmajor_n128(d, a, b);
 }
 
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
-}
-
 struct Ring {
   uint64_t full[STAGES], empty[STAGES];
 };

@@ -1,0 +1,37 @@
+"""Kernel-layout copies of weights, made once per weight version.
+
+A kernel that reads its weights in a layout of its own (`ops/mrf.py`,
+`ops/dilated_conv.py`) keeps the packed copy here rather than repacking at
+every call. The key holds each tensor's storage address, shape, dtype,
+device and in-place version counter; the entry holds weak references to the
+tensors and is taken only while they all live, so a storage freed and reused
+by other tensors can never hit it. An in-place update (an optimizer step) or
+new tensors give a new pack; packs of tensors that died are dropped.
+"""
+
+from __future__ import annotations
+
+import weakref
+from collections import OrderedDict
+from typing import Callable, Hashable, Sequence
+
+import torch
+
+
+def cached_pack(cache: "OrderedDict[tuple, tuple]", size: int,
+                tensors: Sequence[torch.Tensor], extra: Hashable, make: Callable[[], object]):
+    """`make()`, or the pack it gave for these tensors at their current
+    versions; `cache` keeps at most `size` packs, the least recent dropped."""
+    key = tuple((t.data_ptr(), tuple(t.shape), t.dtype, t.device, t._version)
+                for t in tensors) + (extra,)
+    hit = cache.get(key)
+    if hit is not None and all(r() is t for r, t in zip(hit[0], tensors)):
+        cache.move_to_end(key)
+        return hit[1]
+    for k in [k for k, (refs, _) in cache.items() if any(r() is None for r in refs)]:
+        del cache[k]
+    pack = make()
+    cache[key] = (tuple(weakref.ref(t) for t in tensors), pack)
+    while len(cache) > size:
+        cache.popitem(last=False)
+    return pack

@@ -17,7 +17,6 @@ tensors' storage and in-place version counters.
 from __future__ import annotations
 
 import ctypes
-import weakref
 from collections import OrderedDict
 from typing import Sequence, Tuple
 
@@ -25,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from consistencytta_torch.ops import _build
+from consistencytta_torch.ops._packs import cached_pack
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 STAGES = 4  # weight units in the kernel's ring
@@ -148,26 +148,9 @@ _PACKS: "OrderedDict[tuple, tuple]" = OrderedDict()
 
 
 def packed_weights(weights, biases, kernel_sizes):
-    """`pack_weights`, made once per weight version. The key holds each
-    tensor's storage address, shape and in-place version counter; the entry
-    holds weak references to the tensors and is taken only while they all
-    live, so a storage freed and reused by other tensors can never hit it.
-    An in-place update (an optimizer step) or new tensors give a new pack;
-    packs of tensors that died are dropped."""
-    tensors = (*weights, *biases)
-    key = tuple((t.data_ptr(), tuple(t.shape), t.dtype, t.device, t._version)
-                for t in tensors) + (tuple(kernel_sizes),)
-    hit = _PACKS.get(key)
-    if hit is not None and all(r() is t for r, t in zip(hit[0], tensors)):
-        _PACKS.move_to_end(key)
-        return hit[1]
-    for k in [k for k, (refs, _) in _PACKS.items() if any(r() is None for r in refs)]:
-        del _PACKS[k]
-    pack = pack_weights(weights, biases, kernel_sizes)
-    _PACKS[key] = (tuple(weakref.ref(t) for t in tensors), pack)
-    while len(_PACKS) > PACK_CACHE_SIZE:
-        _PACKS.popitem(last=False)
-    return pack
+    """`pack_weights`, made once per weight version (`_packs.cached_pack`)."""
+    return cached_pack(_PACKS, PACK_CACHE_SIZE, (*weights, *biases), tuple(kernel_sizes),
+                       lambda: pack_weights(weights, biases, kernel_sizes))
 
 
 def _mrf_cuda(x, weights, biases, kernel_sizes, dilations, slope, out=None):

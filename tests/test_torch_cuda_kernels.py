@@ -450,6 +450,78 @@ def test_dilated_conv1d_gradient_is_the_plain_gradient(gen):
     assert_close_rel(gw, w.grad, 2e-2)
 
 
+# (B, C, L, k, d, p) by the path each takes through the kernel; `check`
+# names the tile plan it must get (ops/dilated_conv.py:tile_plan)
+K5_PATHS = {
+    "ragged_last_tile": ((2, 64, 1096, 7, 3, 9), lambda pl: pl.xs > 0),
+    "shorter_than_the_halo_tma": ((1, 64, 24, 11, 5, 25), lambda pl: pl.xs > 0),
+    "shorter_than_the_halo_gather": ((1, 32, 13, 11, 5, 25), lambda pl: pl.xs == 0),
+    "batch_1": ((1, 128, 2048, 11, 3, 15), lambda pl: pl.xs > 0 and pl.ws < 11),
+    "l_mod_8_gather": ((2, 64, 4097, 3, 5, 5), lambda pl: pl.xs == 0),
+    "tma_in_plain_out": ((1, 64, 1024, 3, 3, 0), lambda pl: pl.xs > 0),
+    "one_consumer": ((1, 64, 2048, 3, 700, 700), lambda pl: pl.ncw == 1),
+    "streamed_taps_at_c64": ((1, 64, 2000, 31, 1, 15), lambda pl: 1 < pl.ws < 31),
+    "streamed_taps_gather": ((4, 128, 9001, 11, 3, 15),
+                             lambda pl: pl.ws == 3 and pl.xs == 0 and pl.ncw == 2),
+    "streamed_taps_one_consumer": ((4, 128, 9000, 5, 100, 200),
+                                   lambda pl: pl.ws == 3 and pl.ncw == 1),
+    "one_tap_slot": ((4, 128, 9000, 3, 250, 250), lambda pl: pl.ws == 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K5_PATHS))
+def test_dilated_conv1d_paths(gen, case):
+    """Each of the kernel's load and store paths: TMA or gathered windows,
+    TMA or plain stores of y, a ragged last tile, a signal shorter than the
+    halo, one consumer warpgroup, weights streamed per tap through three
+    slots (with and without TMA, with one and two consumers) or through one,
+    the last over several tiles a block."""
+    (b, c, length, k, d, p), check = K5_PATHS[case]
+    x, w = _conv_inputs(gen, b, c, length, k)
+    assert check(dc.check_args(x, w, d, p))
+    before = dc.dilated_conv1d.launches
+    got = dc.dilated_conv1d(x, w, d, p)
+    torch.cuda.synchronize()
+    assert dc.dilated_conv1d.launches == before + 1
+    assert got.shape == (b, c, length + 2 * p - d * (k - 1))
+    assert_close_rel(got, dc.dilated_conv1d_plain(x, w, d, p), 2e-2)
+
+
+def test_dilated_conv1d_on_unaligned_x(gen):
+    """x at an address that is not 16-byte aligned: the consumers gather it."""
+    x, w = _conv_inputs(gen, 2, 64, 1024, 7)
+    flat = torch.empty(x.numel() + 1, device="cuda", dtype=torch.bfloat16)
+    shifted = flat[1:].view_as(x)
+    shifted.copy_(x)
+    assert dc.check_args(shifted, w, 3, 9).xs == 0
+    assert_close_rel(dc.dilated_conv1d(shifted, w, 3, 9), dc.dilated_conv1d_plain(x, w, 3, 9),
+                     2e-2)
+
+
+@pytest.mark.parametrize("c,length,p", [(64, 1000, 9), (32, 701, 4), (128, 1024, 0),
+                                        (128, 1032, 9)])
+def test_dilated_conv1d_writes_nothing_outside_its_output(gen, c, length, p):
+    """The output lands inside a longer buffer filled with a sentinel; every
+    element before and after [B, C, L_out] keeps it (TMA stores at L_out =
+    1000 and 1032, plain stores at 691 and 1006)."""
+    x, w = _conv_inputs(gen, 2, c, length, 7)
+    l_out = length + 2 * p - 18
+    n, pad = 2 * c * l_out, 4096
+    buffer = torch.full((n + 2 * pad,), -7.0, device="cuda", dtype=torch.bfloat16)
+    out = buffer[pad:pad + n].view(2, c, l_out)
+    dc._dilated_conv_cuda(x, w, 3, p, out=out)
+    torch.cuda.synchronize()
+    assert (buffer[:pad] == -7.0).all() and (buffer[pad + n:] == -7.0).all()
+    assert_close_rel(out, dc.dilated_conv1d_plain(x, w, 3, p), 2e-2)
+
+
+def test_dilated_conv1d_repacks_after_an_in_place_weight_update(gen):
+    x, w = _conv_inputs(gen, 1, 64, 512, 3)
+    dc.dilated_conv1d(x, w, 3, 3)
+    w.mul_(-1.0)
+    assert_close_rel(dc.dilated_conv1d(x, w, 3, 3), dc.dilated_conv1d_plain(x, w, 3, 3), 2e-2)
+
+
 def test_dilated_conv1d_refuses_what_it_does_not_take(gen):
     x, w = _conv_inputs(gen, 1, 48, 100, 3)
     with pytest.raises(ValueError):
@@ -459,3 +531,7 @@ def test_dilated_conv1d_refuses_what_it_does_not_take(gen):
         dc.dilated_conv1d(x.float(), w.float(), 3, 3)
     with pytest.raises(ValueError):
         dc.dilated_conv1d(x, w[:32], 3, 3)  # C_out != C_in
+    before = dc.dilated_conv1d.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        dc.dilated_conv1d(x, w, 1000, 1000)  # a window of 2135 positions at C = 64
+    assert dc.dilated_conv1d.launches == before
