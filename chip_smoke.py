@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `consistencytta_torch/csrc/` (one nvcc per
-source, in parallel, into `build/`), then runs ten phases, each printing
+source, in parallel, into `build/`), then runs thirteen phases, each printing
 JSON lines:
 
   env      card name and power limit (nvidia-smi), torch / CUDA versions,
@@ -54,6 +54,21 @@ JSON lines:
            weights run in fp32 on the CPU through the plain versions; clips/s
            and latency (median, least and largest of 10 timed calls per batch
            size), peak memory and per-stage times;
+  profile  consistencytta_torch/tools/profile_stages.py on the main phase's
+           pipeline: the T5, UNet, VAE-decode and vocoder stages' median
+           CUDA-event ms over 10 back-to-back calls at batch 32, then one
+           torch.profiler trace of a whole 1-NFE generate call (after a
+           warm-up call), read by utils.read_trace: the card's busy share of
+           the call, the PROFILE_TOP kernels by summed time and the
+           PROFILE_GAPS longest idle gaps with the host operation during
+           each; K1, K2 and K3 must be in the trace under their launch names
+           with the launches of one call, and the counters must show the
+           launches of the phase's calls;
+  bench    consistencytta_torch/tools/bench.py's main in this process: its
+           one JSON line (clips/s at 1 NFE, batch 32, bf16; vs_baseline
+           against the 18-step Heun CFG teacher measured in the same run;
+           host and CUDA-event ms per call; the card's name and power limit),
+           re-emitted with the launch counts its calls imply;
   train    the training path: Pipeline.create(..., training=True) with the
            teacher, an 18-step Heun schedule, seeded synthetic 10-s
            waveforms and hash-tokenized prompts; one warm-up and ten timed
@@ -153,6 +168,11 @@ JSON lines:
 Then the nvidia-smi line, then the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check exits non-zero, and without a CUDA card the script exits 2.
+
+Not run here: tools/orbax_to_torch.py, which converts the JAX package's
+orbax checkpoints into the port's layout, needs JAX and orbax, which the
+card's host does not have; tests/test_torch_orbax_convert.py holds it on
+the CPU.
 """
 
 from __future__ import annotations
@@ -1608,6 +1628,85 @@ def ddp_cli(torch, out_dir, cards):
         fail(f"ddp: the CLI over NCCL on {cards} cards: {e}")
 
 
+PROFILE_TOP = 15  # kernels by summed time in the profile phase's line
+PROFILE_GAPS = 5  # longest idle gaps of the traced generate call
+
+
+def profile_phase(torch, pipe, fused_levels, reset_counters, read_counters, trace_dir):
+    """tools/profile_stages.py on the main phase's pipeline: the four stages'
+    median CUDA-event ms over back-to-back calls, then one traced 1-NFE
+    generate call at batch 32 (after a warm-up call) read by utils.read_trace:
+    the card's busy share, the top kernels, the longest idle gaps. K1-K3 must
+    be in the trace with the launches one call makes, and the counters must
+    show the launches the phase's calls imply."""
+    from consistencytta_torch.tools import profile_stages as ps
+
+    reset_counters()
+    t0 = time.perf_counter()
+    s = ps.setup(pipe.device, pipeline=pipe)
+    stages = ps.stage_times(s)
+    profile = ps.profile_generate(s, trace_dir, top=None, gaps=PROFILE_GAPS)
+    seconds = time.perf_counter() - t0
+    launches = read_counters()
+    per_trace = ps.kernel_share(profile)
+    trace_mb = os.path.getsize(profile.pop("trace")) / 2**20
+    calls = 1 + ps.ITERS  # each stage's warm-up and timed calls
+    # setup decodes once; the generate calls are a warm-up and the traced one
+    expected = {"flash_mha_packed": 16 * (calls + 2), "flash_self_attention": 1 + calls + 2,
+                "fused_mrf_level": fused_levels * (calls + 2), "stft_magnitude": 0,
+                "dilated_conv1d": 0}
+    in_trace = {"K1": 16, "K2": 1, "K3": fused_levels}
+    line = {
+        "phase": "profile", "batch": s.z.shape[0], "stages_ms": stages,
+        "busy_share": profile["busy_share"], "window_ms": profile["window_ms"],
+        "busy_ms": profile["busy_ms"], "call_seconds": profile["call_seconds"],
+        "kernel_launches_in_trace": profile["kernels"],
+        "top_kernels": profile["top_kernels"][:PROFILE_TOP], "gaps": profile["gaps"],
+        "k1_k3_in_trace": per_trace, "launch_names": ps.LAUNCH_NAMES,
+        "launches": launches, "expected_launches": expected, "trace_mb": trace_mb,
+        "seconds": seconds,
+    }
+    if profile["kernels"] == 0:
+        fail("profile: the trace holds no CUDA kernel")
+    for k, n in in_trace.items():
+        if per_trace[k]["launches"] != n:
+            fail(f"profile: {k} ({ps.LAUNCH_NAMES[k]}) launched {per_trace[k]['launches']} "
+                 f"times in the traced call, expected {n}")
+    if launches != expected:
+        fail(f"profile launch counts {launches} != expected {expected}")
+    return line, launches
+
+
+def bench_phase(torch, fused_levels, reset_counters, read_counters, smi):
+    """tools/bench.py's main in this process: its one JSON line (printed by
+    it), re-emitted with the phase's launch counts, which must be those of
+    11 student calls and 3 teacher calls of 35 queries at the CFG batch."""
+    from consistencytta_torch.tools import bench
+
+    reset_counters()
+    t0 = time.perf_counter()
+    line = bench.main([])
+    seconds = time.perf_counter() - t0
+    launches = read_counters()
+    student = 1 + bench.ITERS["cuda"]
+    teacher = (1 + bench.TEACHER_ITERS["cuda"]) * (2 * bench.TEACHER_STEPS - 1)
+    calls = student + 1 + bench.TEACHER_ITERS["cuda"]  # each call decodes once
+    expected = {"flash_mha_packed": 16 * (student + teacher), "flash_self_attention": calls,
+                "fused_mrf_level": fused_levels * calls, "stft_magnitude": 0,
+                "dilated_conv1d": 0}
+    numbers = [line[k] for k in ("value", "vs_baseline", "device_ms_per_call",
+                                 "teacher_clips_per_sec")]
+    if not all(isinstance(x, float) and x > 0 and x == x and x != float("inf")
+               for x in numbers):
+        fail(f"bench: a non-positive or non-finite number in {line}")
+    if f"{line['name']}, {line['power_limit']}" != smi:
+        fail(f"bench: card {line['name']!r}, {line['power_limit']!r} is not nvidia-smi's {smi!r}")
+    if launches != expected:
+        fail(f"bench launch counts {launches} != expected {expected}")
+    return {"phase": "bench", "line": line, "launches": launches, "expected_launches": expected,
+            "seconds": seconds}, launches
+
+
 def main() -> None:
     try:
         import torch
@@ -2198,8 +2297,24 @@ def main() -> None:
     if not rel_l2 <= ref_tol:
         fail(f"batch-1 clip differs from the fp32 CPU reference: rel L2 {rel_l2}")
 
+    # -- profile: stage times and a traced generate call on main's pipeline -------
+    trace_dir = os.path.join(root, "outputs", f"chip_smoke_profile_{os.getpid()}")
+    try:
+        profile, profile_launches = profile_phase(torch, pipe, fused_levels, reset_counters,
+                                                  read_counters, trace_dir)
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    emit(profile)
+    del pipe, generate
+    torch.cuda.empty_cache()
+
+    # -- bench: tools/bench.py's line, in this process ------------------------------
+    bench, bench_launches = bench_phase(torch, fused_levels, reset_counters, read_counters, smi)
+    emit(bench)
+    torch.cuda.empty_cache()
+
     # -- training path ------------------------------------------------------------
-    del pipe, generate, ref, student, z, emb, mel, wav, wav32, got, want
+    del ref, student, z, emb, mel, wav, wav32, got, want
     torch.cuda.empty_cache()
     roles = ("student", "student_target", "student_ema", "teacher")
     t0 = time.perf_counter()
@@ -2437,6 +2552,8 @@ def main() -> None:
     # K4's one counter counts both filter lengths: the train path runs only
     # N = 1024, the serve and eval paths only N = 512, so each row takes its paths'
     runs = {"generate": f"the generate run's {calls} calls",
+            "profile": "the profile run's stage calls and two generate calls",
+            "bench": "the bench run's 11 student and 3 teacher calls",
             "train": f"the train run's {n_train_steps} steps and one validation",
             "serve": "the serve run's two CLI runs (the second evaluating)",
             "eval": "the eval run's evaluate_existing",
@@ -2449,7 +2566,8 @@ def main() -> None:
         b_ms = r["bound_ms"]
         b_by = max(("bytes", "operations"), key=lambda by: r[f"bound_{by}_ms"])
         counter = "stft_magnitude" if name.startswith("stft") else name
-        paths = {"generate": launches[counter], "train": train_launches[counter],
+        paths = {"generate": launches[counter], "profile": profile_launches[counter],
+                 "bench": bench_launches[counter], "train": train_launches[counter],
                  "serve": serve_launches[counter], "eval": eval_launches[counter],
                  "fit": fit_train[counter] + fit_infer[counter],
                  "stage3": s3_train[counter] + s3_infer[counter], "ddp": ddp_launches[counter]}

@@ -50,6 +50,7 @@ def main(argv=None, stdin=None) -> None:
     from consistencytta_torch.io.checkpoints import load_frozen_and_roles
     from consistencytta_torch.models.pipeline import Pipeline
     from consistencytta_torch.text.tokenizer import load_tokenizer, tokenize_with_uncond
+    from consistencytta_torch.utils import seed_all
 
     args = parse_args(argv)
     if args.original_args:
@@ -68,7 +69,7 @@ def main(argv=None, stdin=None) -> None:
         build_teacher_generate_fn(pipeline, args.num_teacher_steps)
     tokenizer = load_tokenizer(args.text_encoder_name, vocab_size=config.t5.vocab_size)
     os.makedirs(args.output_dir, exist_ok=True)
-    generator = torch.Generator(device=pipeline.device).manual_seed(args.seed)
+    generator = seed_all(args.seed, pipeline.device)
     guidance = np.float32(args.guidance_scale_input)
 
     def timed(fn, text):

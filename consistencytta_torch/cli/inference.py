@@ -130,6 +130,7 @@ def main(argv=None) -> dict:
     from consistencytta_torch.models.pipeline import Pipeline
     from consistencytta_torch.text.tokenizer import load_tokenizer, tokenize_with_uncond
     from consistencytta_torch.training.data import T2ADataset
+    from consistencytta_torch.utils import seed_all
 
     args = parse_args(argv)
     if args.original_args:
@@ -177,7 +178,7 @@ def main(argv=None) -> dict:
     save_mels = not args.no_save_mels
     mel_frontend = eval_mel_frontend(pipeline.device) if save_mels else None
 
-    generator = torch.Generator(device=pipeline.device).manual_seed(args.seed)
+    generator = seed_all(args.seed, pipeline.device)
     guidance = np.float32(args.guidance_scale_input)
     seconds = {"gen_seconds": 0.0, "teacher_seconds": 0.0, "write_seconds": 0.0,
                "teacher_write_seconds": 0.0, "mel_seconds": 0.0}

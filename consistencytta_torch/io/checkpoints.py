@@ -47,8 +47,13 @@ checkpoint holds `text_encoder.*`, the loader takes the T5 from it, so that
 a trained student is served with the encoder it was trained with.
 
 Orbax checkpoint directories (the JAX package's own training output, its
-LoRA form included) are refused: reading them without JAX is
-`ROADMAP.md` item 2c's last part.
+LoRA and FTVAE forms included) are refused: `tools/orbax_to_torch.py`, run
+where JAX and orbax are installed, converts one into this layout, plus
+{dir}/first_stage_model.bin, the VAE and vocoder of the JAX run's frozen
+tree in the AudioLDM layout (`first_stage_model.*`, the vocoder under
+`first_stage_model.vocoder.*`). Where `model_path` names a directory that
+holds that file, its VAE and vocoder go over `vae_checkpoint`'s, as the JAX
+loader puts an orbax directory's frozen VAE and vocoder over them.
 
 `torch.load` unpickles: load only checkpoints you trust, as with the
 reference's own loader.
@@ -79,6 +84,7 @@ MODEL_FILE = "pytorch_model_2.bin"
 OPTIMIZER_FILE = "optimizer.bin"
 SCHEDULER_FILE = "scheduler.bin"
 CONFIG_FILE = "config.json"
+FIRST_STAGE_FILE = "first_stage_model.bin"
 T5_PREFIX = "text_encoder."
 
 
@@ -204,8 +210,10 @@ def checkpoint_file(path: str) -> str:
     if is_orbax_checkpoint(path):
         raise NotImplementedError(
             f"{path} is an orbax checkpoint directory (the JAX package's training "
-            "output, LoRA included): the port does not read those yet; it reads "
-            "reference-format torch files and its own checkpoint directories")
+            "output): the port reads reference-format torch files and its own "
+            "checkpoint directories; convert it first with `python "
+            f"tools/orbax_to_torch.py {path} OUT_DIR`, which runs where JAX and "
+            "orbax are installed, and pass OUT_DIR")
     model = os.path.join(path, MODEL_FILE)
     if not os.path.exists(model):
         raise FileNotFoundError(f"{path} is a directory without {MODEL_FILE}")
@@ -236,6 +244,25 @@ def _own_module(pipeline, role: str) -> nn.Module:
     return module
 
 
+def _load_first_stage(pipeline, path: str, loaded: Dict[str, str],
+                      require_vae: bool) -> None:
+    """Load an AudioLDM-layout file's VAE and vocoder (`first_stage_model.*`,
+    the vocoder under `.vocoder.*`; the prefix may be absent). The vocoder
+    is loaded where the file holds it; the VAE too, and a file without VAE
+    keys raises where `require_vae`."""
+    sd = load_torch_state_dict(path)
+    if any(k.startswith("first_stage_model.") for k in sd):
+        sd = strip_prefix(sd, "first_stage_model.")
+    voc = strip_prefix(sd, "vocoder.")
+    vae = {k: v for k, v in sd.items() if not k.startswith("vocoder.")}
+    if vae or require_vae:
+        load_into(pipeline.vae, vae, "vae")
+        loaded["vae"] = path
+    if voc:
+        load_into(pipeline.vocoder, voc, "vocoder")
+        loaded["vocoder"] = path
+
+
 def load_frozen_and_roles(pipeline, tango_model: Optional[str] = None,
                           stage1_model: Optional[str] = None,
                           model_path: Optional[str] = None,
@@ -250,12 +277,16 @@ def load_frozen_and_roles(pipeline, tango_model: Optional[str] = None,
     decoder pair where present); otherwise `tango_model` (+ `stage1_model`)
     the TANGO fan-out. `model_path` and `stage1_model` may be checkpoint
     directories (`checkpoint_file`); the T5 encoder comes from whichever of
-    the two holds `text_encoder.*`. Only the UNet roles the pipeline holds
-    are loaded.
+    the two holds `text_encoder.*`. A `model_path` directory's
+    first_stage_model.bin (a converted orbax checkpoint's frozen VAE and
+    vocoder) goes over `vae_checkpoint`'s. Only the UNet roles the pipeline
+    holds are loaded.
     `random_init_seed`: the seed the pipeline's random init came from, when
     the caller lets that init stand for what no checkpoint holds; with None,
     every UNet role of the pipeline, the VAE and the vocoder must come from a
     checkpoint."""
+    first_stage = (os.path.join(model_path, FIRST_STAGE_FILE)
+                   if model_path and os.path.isdir(model_path) else None)
     model_path = checkpoint_file(model_path) if model_path else None
     stage1_model = checkpoint_file(stage1_model) if stage1_model else None
     if stage1_model and not tango_model:
@@ -264,16 +295,9 @@ def load_frozen_and_roles(pipeline, tango_model: Optional[str] = None,
     cfg = pipeline.config
     loaded: Dict[str, str] = {}
     if vae_checkpoint:
-        sd = load_torch_state_dict(vae_checkpoint)
-        if any(k.startswith("first_stage_model.") for k in sd):
-            sd = strip_prefix(sd, "first_stage_model.")
-        voc = strip_prefix(sd, "vocoder.")
-        load_into(pipeline.vae, {k: v for k, v in sd.items() if not k.startswith("vocoder.")},
-                  "vae")
-        loaded["vae"] = vae_checkpoint
-        if voc:
-            load_into(pipeline.vocoder, voc, "vocoder")
-            loaded["vocoder"] = vae_checkpoint
+        _load_first_stage(pipeline, vae_checkpoint, loaded, require_vae=True)
+    if first_stage and os.path.exists(first_stage):
+        _load_first_stage(pipeline, first_stage, loaded, require_vae=False)
 
     roles, ft_trained, ft_ema, source, model_sd = None, None, None, None, None
     if model_path:
@@ -324,12 +348,14 @@ def load_frozen_and_roles(pipeline, tango_model: Optional[str] = None,
 # -- training checkpoints ------------------------------------------------------
 
 
-def ftvae_state_dict(vae_dec: nn.Module, vae_dec_ema: nn.Module) -> StateDict:
-    """An FTVAE state's decoder pair and its EMA under the reference's keys
+def ftvae_state_dict(dec_sd: Mapping[str, torch.Tensor],
+                     ema_sd: Mapping[str, torch.Tensor]) -> StateDict:
+    """An FTVAE state's decoder pair and its EMA (state dicts rooted at
+    decoder. / post_quant_conv.) under the reference's keys
     (models/audio_consistency_model_ftvae.py:69-91), which
     `extract_ftvae_decoders` reads back."""
-    sd = {"vae." + k: v for k, v in vae_dec.state_dict().items()}
-    for k, v in vae_dec_ema.state_dict().items():
+    sd = {"vae." + k: v for k, v in dec_sd.items()}
+    for k, v in ema_sd.items():
         root, rest = k.split(".", 1)
         sd[("ema_vae_decoder." if root == "decoder" else "ema_vae_pqconv.") + rest] = v
     return sd
@@ -348,7 +374,7 @@ def model_state_dict(state, pipeline=None) -> StateDict:
             else merged_state_dict(state.lora_base, module)
         sd.update({f"{role}_unet.{k}": v for k, v in role_sd.items()})
     if getattr(state, "vae_dec", None) is not None:
-        sd.update(ftvae_state_dict(state.vae_dec, state.vae_dec_ema))
+        sd.update(ftvae_state_dict(state.vae_dec.state_dict(), state.vae_dec_ema.state_dict()))
     if pipeline is not None:
         if "teacher" in pipeline.unets:
             sd.update({f"teacher_unet.{k}": v

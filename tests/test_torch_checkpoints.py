@@ -186,7 +186,7 @@ def test_what_the_loader_refuses(files, tmp_path):
     port = _port(params)
     orbax = tmp_path / "run"
     os.makedirs(orbax / "state")
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(NotImplementedError, match="orbax.*tools/orbax_to_torch.py"):
         ck.load_frozen_and_roles(port, model_path=str(orbax))
     with pytest.raises(ValueError, match="tango_model"):
         ck.load_frozen_and_roles(port, stage1_model=paths["stage1.bin"])
@@ -195,6 +195,11 @@ def test_what_the_loader_refuses(files, tmp_path):
     ck.load_frozen_and_roles(port, model_path=paths["full.bin"], random_init_seed=0)
     with pytest.raises(KeyError, match="missing"):  # a checkpoint without the VAE's keys
         ck.load_frozen_and_roles(port, vae_checkpoint=paths["stage1.bin"], random_init_seed=0)
+    voc_only = str(tmp_path / "vocoder_only.ckpt")
+    torch.save({k: v for k, v in ck.load_torch_state_dict(paths["vae.ckpt"]).items()
+                if k.startswith("first_stage_model.vocoder.")}, voc_only)
+    with pytest.raises(KeyError, match="missing"):  # the vocoder alone, no VAE
+        ck.load_frozen_and_roles(port, vae_checkpoint=voc_only, random_init_seed=0)
 
 
 def test_state_dict_wrappers_and_prefixes(files):

@@ -42,7 +42,8 @@ def test_port_imports_no_jax():
                 "evaluation/harness.py", "cli/evaluate_existing.py",
                 "tools/random_eval_checkpoints.py", "training/lora.py", "training/loop.py",
                 "cli/train.py", "training/clap_loss.py", "training/ftvae.py",
-                "parallel/__init__.py", "parallel/mesh.py", "tools/ddp_scaling.py"):
+                "parallel/__init__.py", "parallel/mesh.py", "tools/ddp_scaling.py",
+                "utils.py", "tools/bench.py", "tools/profile_stages.py"):
         assert os.path.join("consistencytta_torch", new) in names
     bad = {}
     for path in files:
@@ -58,6 +59,26 @@ def test_port_imports_no_jax():
         if hits:
             bad[os.path.relpath(path, REPO)] = hits
     assert not bad, bad
+
+
+def test_port_does_not_import_the_converter():
+    """tools/orbax_to_torch.py imports both packages; nothing of the port
+    imports it (the port's refusal of an orbax directory only names it)."""
+    bad = []
+    for path in _port_files():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] + [f"{node.module}.{a.name}" for a in node.names]
+            if any("orbax_to_torch" in n or n == "tools" or n.startswith("tools.")
+                   for n in names):
+                bad.append(os.path.relpath(path, REPO))
+    assert not bad, bad
+    assert os.path.exists(os.path.join(REPO, "tools", "orbax_to_torch.py"))
 
 
 def test_cuda_request_without_card_raises(monkeypatch):
@@ -92,6 +113,12 @@ def test_cuda_request_without_card_raises(monkeypatch):
         evaluate_existing.main(["--gen_dir", ".", "--ref_dir", "."])
     with pytest.raises(RuntimeError, match="cuda"):
         CLAPMelFrontend()
+    from consistencytta_torch.tools import bench, profile_stages
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench.main([])
+    with pytest.raises(RuntimeError, match="cuda"):
+        profile_stages.main([])
     for load in (load_cnn14, load_clap_towers, load_vggish):
         with pytest.raises(RuntimeError, match="cuda"):
             load(os.devnull)

@@ -1,0 +1,144 @@
+"""The port's profiling helpers (consistencytta_torch/utils.py) against the
+JAX package's where they have a counterpart, the trace reader on a
+hand-made trace with known intervals, and the bench and stage-profile tools
+at the tiny size on the CPU."""
+
+import json
+import random
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from consistencytta_torch.tools import bench, profile_stages
+from consistencytta_torch.utils import PhaseTimer, profile_trace, read_trace, seed_all
+from consistencytta_tpu.utils import seed_all as jax_seed_all
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def test_seed_all_gives_the_jax_packages_host_streams():
+    jax_seed_all(7)
+    want = (random.random(), np.random.rand(3))
+    gen = seed_all(7)
+    got = (random.random(), np.random.rand(3))
+    assert got[0] == want[0]
+    np.testing.assert_array_equal(got[1], want[1])
+    draws = (torch.randn(4), torch.randn(4, generator=gen))
+    gen = seed_all(7)
+    np.testing.assert_array_equal(torch.randn(4).numpy(), draws[0].numpy())
+    np.testing.assert_array_equal(torch.randn(4, generator=gen).numpy(), draws[1].numpy())
+
+
+def test_phase_timer_phases_add_up():
+    timer = PhaseTimer()
+    t0 = time.perf_counter()
+    for name in ("a", "b", "a"):
+        with timer.phase(name, sync=torch.device("cpu")):
+            time.sleep(0.02)
+    wall = time.perf_counter() - t0
+    phases = timer.summary()
+    assert set(phases) == {"a", "b"}
+    assert phases["a"] >= 0.04 and phases["b"] >= 0.02
+    assert sum(phases.values()) <= wall
+
+
+def test_profile_trace_writes_a_chrome_trace(tmp_path):
+    with profile_trace(None) as nothing:
+        pass
+    assert nothing is None
+    x = torch.randn(64, 64)
+    with profile_trace(str(tmp_path / "log"), "cpu") as path:
+        for _ in range(3):
+            x = torch.tanh(x @ x)
+    with open(path) as f:
+        trace = json.load(f)
+    names = {e.get("name") for e in trace["traceEvents"] if e.get("cat") == "cpu_op"}
+    assert {"aten::mm", "aten::tanh"} <= names
+    summary = read_trace(path)
+    assert summary["busy_ms"] == 0 and summary["kernels"] == 0
+    assert len(summary["gaps"]) == 1 and summary["gaps"][0]["ms"] == summary["window_ms"]
+
+
+def _event(cat, name, ts, dur):
+    return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "pid": 0, "tid": 0}
+
+
+def test_read_trace_on_known_intervals():
+    """Window 0-100 us. Device: kernels A [10, 30) and B [20, 40) overlap,
+    A again [60, 70), a memcpy [70, 75); busy = 30 + 10 + 5 = 45 us. Idle
+    gaps: [0, 10), [40, 60), [75, 100). The host: `outer` spans everything,
+    `mid` [35, 65) and `inner` [45, 55) lie in the gap [40, 60)."""
+    events = [
+        _event("cpu_op", "outer", 0, 100),
+        _event("cpu_op", "mid", 35, 30),
+        _event("cpu_op", "inner", 45, 10),
+        _event("cuda_runtime", "cudaLaunchKernel", 80, 5),
+        _event("kernel", "A", 10, 20),
+        _event("kernel", "B", 20, 20),
+        _event("kernel", "A", 60, 10),
+        _event("gpu_memcpy", "Memcpy HtoD", 70, 5),
+        {"ph": "s", "cat": "ac2g", "name": "flow", "ts": 5, "id": 1},
+    ]
+    got = read_trace({"traceEvents": events}, top=1, gaps=2)
+    assert got["window_ms"] == pytest.approx(0.1)
+    assert got["busy_ms"] == pytest.approx(0.045)
+    assert got["busy_share"] == pytest.approx(0.45)
+    assert got["kernels"] == 3
+    assert got["top_kernels"] == [{"name": "A", "ms": pytest.approx(0.03), "launches": 2}]
+    gaps = [(g["start_ms"], g["ms"], g["host_op"]) for g in got["gaps"]]
+    # [75, 100): outer and the launch both overlap; outer overlaps most
+    assert gaps == [(pytest.approx(0.075), pytest.approx(0.025), "outer"),
+                    (pytest.approx(0.04), pytest.approx(0.02), "mid")]
+    every = read_trace({"traceEvents": events}, top=None, gaps=10)
+    assert [k["name"] for k in every["top_kernels"]] == ["A", "B"]
+    assert [round(g["ms"] * 1e3) for g in every["gaps"]] == [25, 20, 10]
+    # a gap wholly inside two host ops of equal overlap names the shorter one
+    tied = read_trace({"traceEvents": [_event("cpu_op", "long", 0, 100),
+                                       _event("cpu_op", "short", 10, 80),
+                                       _event("kernel", "K", 0, 20),
+                                       _event("kernel", "K", 80, 20)]})
+    assert tied["gaps"][0]["host_op"] == "short"
+    with pytest.raises(ValueError, match="no complete events"):
+        read_trace({"traceEvents": []})
+
+
+def test_profile_stages_at_the_tiny_size(capsys):
+    out = profile_stages.main(["--device", "cpu"])
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [set(line) & {"stages_ms", "profile"} for line in lines] == [{"stages_ms"}, {"profile"}]
+    assert set(out["stages_ms"]) == {"t5_ms", "unet_ms", "vae_decode_ms", "vocoder_ms"}
+    assert all(v > 0 for v in out["stages_ms"].values())
+    profile = out["profile"]
+    assert profile["kernels"] == 0 and profile["busy_share"] == 0  # no card, no kernels
+    assert profile["window_ms"] > 0 and "trace" not in profile
+    assert set(out["kernels_ms"]) == {"K1", "K2", "K3"}
+
+
+def test_profile_stages_kernel_share():
+    profile = {"top_kernels": [
+        {"name": "void mha_packed_kernel<1>(...)", "ms": 1.0, "launches": 4},
+        {"name": "void mha_packed_kernel<2>(...)", "ms": 0.5, "launches": 12},
+        {"name": "void mrf_level_kernel<128, 2, true>(...)", "ms": 2.0, "launches": 3},
+        {"name": "cutlass_gemm", "ms": 9.0, "launches": 100}]}
+    assert profile_stages.kernel_share(profile) == {
+        "K1": {"ms": 1.5, "launches": 16}, "K2": {"ms": 0, "launches": 0},
+        "K3": {"ms": 2.0, "launches": 3}}
+
+
+def test_bench_prints_one_line_with_the_jax_benchs_keys(capsys):
+    line = bench.main(["--device", "cpu"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1 and json.loads(out[0]) == line
+    assert {"metric", "value", "unit", "vs_baseline"} <= set(line)
+    assert line["metric"] == "10s_clips_per_sec_per_chip_1nfe"
+    assert line["platform"] == "cpu" and line["device_ms_per_call"] is None
+    assert line["value"] > 0 and line["teacher_clips_per_sec"] > 0
+    assert line["vs_baseline"] == pytest.approx(line["value"] / line["teacher_clips_per_sec"])
