@@ -56,7 +56,8 @@ JSON lines:
            size), peak memory and per-stage times;
   profile  consistencytta_torch/tools/profile_stages.py on the main phase's
            pipeline: the T5, UNet, VAE-decode and vocoder stages' median
-           CUDA-event ms over 10 back-to-back calls at batch 32, then one
+           CUDA-event ms from the stage spans of 10 back-to-back 1-NFE
+           generate calls at batch 32, then one
            torch.profiler trace of a whole 1-NFE generate call (after a
            warm-up call), read by utils.read_trace: the card's busy share of
            the call, the PROFILE_TOP kernels by summed time and the
@@ -1634,7 +1635,8 @@ PROFILE_GAPS = 5  # longest idle gaps of the traced generate call
 
 def profile_phase(torch, pipe, fused_levels, reset_counters, read_counters, trace_dir):
     """tools/profile_stages.py on the main phase's pipeline: the four stages'
-    median CUDA-event ms over back-to-back calls, then one traced 1-NFE
+    median CUDA-event ms from the stage spans of back-to-back 1-NFE generate
+    calls, then one traced 1-NFE
     generate call at batch 32 (after a warm-up call) read by utils.read_trace:
     the card's busy share, the top kernels, the longest idle gaps. K1-K3 must
     be in the trace with the launches one call makes, and the counters must
@@ -1650,10 +1652,11 @@ def profile_phase(torch, pipe, fused_levels, reset_counters, read_counters, trac
     launches = read_counters()
     per_trace = ps.kernel_share(profile)
     trace_mb = os.path.getsize(profile.pop("trace")) / 2**20
-    calls = 1 + ps.ITERS  # each stage's warm-up and timed calls
-    # setup decodes once; the generate calls are a warm-up and the traced one
-    expected = {"flash_mha_packed": 16 * (calls + 2), "flash_self_attention": 1 + calls + 2,
-                "fused_mrf_level": fused_levels * (calls + 2), "stft_magnitude": 0,
+    # generate calls: the stage timing's warm-up and timed ones, then the
+    # profile's warm-up and traced one
+    calls = 1 + ps.ITERS + 2
+    expected = {"flash_mha_packed": 16 * calls, "flash_self_attention": calls,
+                "fused_mrf_level": fused_levels * calls, "stft_magnitude": 0,
                 "dilated_conv1d": 0}
     in_trace = {"K1": 16, "K2": 1, "K3": fused_levels}
     line = {

@@ -12,10 +12,15 @@ Random draws: the initial latent noise and one `eps` per refinement step
 come either from the caller (`noise=`, `eps=`, standard normal tensors)
 or from `torch.randn` with the caller's `generator`. The multi-step
 samplers draw only the initial noise.
+
+Each call of a built function is one root `generate` span
+(`utils.span`), around the pipeline's `t5`, `unet`, `vae_decode` and
+`vocoder` spans.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
 
@@ -23,6 +28,7 @@ import torch
 
 from consistencytta_torch.models.pipeline import Pipeline
 from consistencytta_torch.ops.schedulers import make_ddim_schedule, make_heun_schedule
+from consistencytta_torch.utils import span
 
 
 @dataclass(frozen=True)
@@ -53,6 +59,15 @@ def _truncate(pipeline: Pipeline, wav: torch.Tensor, seconds: Optional[float]) -
     if seconds is None:
         return wav
     return wav[:, : int(pipeline.config.sample_rate * seconds)]
+
+
+def _generate_span(fn: Callable) -> Callable:
+    """Each call of a built generate function is one root `generate` span."""
+    @functools.wraps(fn)
+    def call(ids, *args, **kwargs):
+        with span("generate"):
+            return fn(ids, *args, **kwargs)
+    return call
 
 
 def _solve(sched, use_edm: bool, noise: torch.Tensor, query: Callable) -> torch.Tensor:
@@ -110,6 +125,7 @@ def build_generate_fn(pipeline: Pipeline, gen: GenerateConfig = GenerateConfig()
         t = full(b, int(sched.timesteps[i]), torch.int32)
         return t, t
 
+    @_generate_span
     @torch.no_grad()
     def generate(ids, mask, uncond_ids, uncond_mask, guidance,
                  generator: Optional[torch.Generator] = None,
@@ -167,6 +183,7 @@ def build_guided_student_generate_fn(
              else make_ddim_schedule(sched_cfg, num_steps))
     dev = pipeline.device
 
+    @_generate_span
     @torch.no_grad()
     def generate(ids, mask, uncond_ids, uncond_mask, guidance,
                  generator: Optional[torch.Generator] = None,
@@ -216,6 +233,7 @@ def build_teacher_generate_fn(
              else make_ddim_schedule(sched_cfg, num_steps))
     dev = pipeline.device
 
+    @_generate_span
     @torch.no_grad()
     def generate(ids, mask, uncond_ids, uncond_mask, guidance,
                  generator: Optional[torch.Generator] = None,

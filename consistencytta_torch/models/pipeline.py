@@ -29,7 +29,7 @@ from consistencytta_torch.nn.t5 import T5Encoder
 from consistencytta_torch.nn.unet import UNet2DConditionGuided
 from consistencytta_torch.nn.vae import AutoencoderKL
 from consistencytta_torch.ops.stft import MelFrontend
-from consistencytta_torch.utils import cast_module, resolve_device
+from consistencytta_torch.utils import cast_module, resolve_device, span
 
 STUDENT_ROLES = ("student", "student_target", "student_ema")
 
@@ -108,17 +108,19 @@ class Pipeline:
     # -- text ---------------------------------------------------------------
 
     def encode_text(self, ids, mask) -> torch.Tensor:
-        return self.t5(self._tensor(ids, torch.long), self._tensor(mask, torch.long))
+        with span("t5"):
+            return self.t5(self._tensor(ids, torch.long), self._tensor(mask, torch.long))
 
     def encode_text_cfg(
         self, ids, mask, uncond_ids, uncond_mask
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """(embeds_cf [2B], mask_cf [2B], embeds [B], mask [B]) with the
         unconditional half first."""
-        ids, mask = self._tensor(ids, torch.long), self._tensor(mask, torch.long)
-        both_ids = torch.cat([self._tensor(uncond_ids, torch.long), ids])
-        both_mask = torch.cat([self._tensor(uncond_mask, torch.long), mask])
-        embeds_cf = self.t5(both_ids, both_mask)
+        with span("t5"):
+            ids, mask = self._tensor(ids, torch.long), self._tensor(mask, torch.long)
+            both_ids = torch.cat([self._tensor(uncond_ids, torch.long), ids])
+            both_mask = torch.cat([self._tensor(uncond_mask, torch.long), mask])
+            embeds_cf = self.t5(both_ids, both_mask)
         return embeds_cf, both_mask, embeds_cf[ids.shape[0]:], mask
 
     # -- UNet ---------------------------------------------------------------
@@ -128,7 +130,8 @@ class Pipeline:
         dtype on the card (a training role) runs under autocast."""
         autocast = (self.device.type == "cuda" and self.dtype != torch.float32
                     and unet.conv_in.weight.dtype == torch.float32)
-        with torch.autocast("cuda", dtype=self.dtype, enabled=autocast):
+        with span("unet"), \
+                torch.autocast("cuda", dtype=self.dtype, enabled=autocast):
             return unet(*args)
 
     def query_student(self, z_scaled, t, text_embeds, text_mask, guidance,
@@ -168,7 +171,8 @@ class Pipeline:
         card (the stage-3 FTVAE decoder in training) runs under autocast."""
         autocast = (self.device.type == "cuda" and self.dtype != torch.float32
                     and vae.post_quant_conv.weight.dtype == torch.float32)
-        with torch.autocast("cuda", dtype=self.dtype, enabled=autocast):
+        with span("vae_decode"), \
+                torch.autocast("cuda", dtype=self.dtype, enabled=autocast):
             return vae.decode_first_stage(z_scaled)
 
     def decode_latents(self, z_scaled: torch.Tensor, chunk: Optional[int] = None,
@@ -188,7 +192,8 @@ class Pipeline:
 
         def decode_one(z):
             mel = self.decode_mel(vae, z)  # [b, T, F, 1]
-            return self.vocoder(mel[..., 0].transpose(1, 2))
+            with span("vocoder"):
+                return self.vocoder(mel[..., 0].transpose(1, 2))
 
         b = z_scaled.shape[0]
         if chunk and 0 < chunk < b and b % chunk == 0:

@@ -22,6 +22,7 @@ from torch import nn
 
 from consistencytta_torch.nn.layers import GroupNorm, LayerNorm
 from consistencytta_torch.ops.attention import flash_mha_packed, head_pad
+from consistencytta_torch.utils import span
 
 
 class Attention(nn.Module):
@@ -120,9 +121,10 @@ class BasicTransformerBlock(nn.Module):
         self.ff = FeedForward(dim)
 
     def forward(self, x, encoder_hidden_states, encoder_mask_bias):
-        x = x + self.attn1(self.norm1(x))
-        x = x + self.attn2(self.norm2(x), encoder_hidden_states, encoder_mask_bias)
-        return x + self.ff(self.norm3(x))
+        with span("transformer"):
+            x = x + self.attn1(self.norm1(x))
+            x = x + self.attn2(self.norm2(x), encoder_hidden_states, encoder_mask_bias)
+            return x + self.ff(self.norm3(x))
 
 
 class Transformer2D(nn.Module):

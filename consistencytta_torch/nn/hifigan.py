@@ -17,6 +17,7 @@ from torch import nn
 
 from consistencytta_torch.configs import HiFiGANConfig
 from consistencytta_torch.ops.mrf import fused_mrf_level, mrf_level_plain
+from consistencytta_torch.utils import span
 
 FUSE_MAX_CHANNELS = 128
 
@@ -81,10 +82,11 @@ class HiFiGANGenerator(nn.Module):
                 w, b = rb.chain()
                 ws += w
                 bs += b
-            if x.shape[1] <= FUSE_MAX_CHANNELS:
-                x = fused_mrf_level(x, ws, bs, ks, ds, cfg.lrelu_slope)
-            else:
-                x = mrf_level_plain(x, ws, bs, ks, ds, cfg.lrelu_slope, phase_split=True)
+            with span("mrf"):
+                if x.shape[1] <= FUSE_MAX_CHANNELS:
+                    x = fused_mrf_level(x, ws, bs, ks, ds, cfg.lrelu_slope)
+                else:
+                    x = mrf_level_plain(x, ws, bs, ks, ds, cfg.lrelu_slope, phase_split=True)
         x = F.leaky_relu(x)  # default slope 0.01
         x = torch.tanh(self.conv_post(x))
         return x.reshape(x.shape[0], -1)

@@ -3,7 +3,8 @@
 Normalization statistics are taken in float32 whatever the compute dtype,
 with the two-pass formula, and the result is cast back to the input dtype.
 The normalization modules keep their affine parameters in float32
-(`keep_fp32`, see utils.cast_module).
+(`keep_fp32`, see utils.cast_module). Their whole forward, casts included,
+is one `norm` span (utils.span).
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from consistencytta_torch.utils import span
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:
@@ -24,10 +27,11 @@ class GroupNorm(nn.GroupNorm):
     keep_fp32 = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(
-            x.float(), self.num_groups, self.weight.float(), self.bias.float(),
-            self.eps,
-        ).to(x.dtype)
+        with span("norm"):
+            return F.group_norm(
+                x.float(), self.num_groups, self.weight.float(), self.bias.float(),
+                self.eps,
+            ).to(x.dtype)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -36,10 +40,11 @@ class LayerNorm(nn.LayerNorm):
     keep_fp32 = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(
-            x.float(), self.normalized_shape, self.weight.float(),
-            self.bias.float(), self.eps,
-        ).to(x.dtype)
+        with span("norm"):
+            return F.layer_norm(
+                x.float(), self.normalized_shape, self.weight.float(),
+                self.bias.float(), self.eps,
+            ).to(x.dtype)
 
 
 def nearest_upsample_2d(x: torch.Tensor, scale: int = 2) -> torch.Tensor:

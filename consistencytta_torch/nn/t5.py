@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from consistencytta_torch.configs import T5Config
+from consistencytta_torch.utils import span
 
 
 class RMSNorm(nn.Module):
@@ -29,9 +30,10 @@ class RMSNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
-        var = x32.pow(2).mean(-1, keepdim=True)
-        return (x32 * torch.rsqrt(var + self.eps) * self.weight.float()).to(x.dtype)
+        with span("norm"):
+            x32 = x.float()
+            var = x32.pow(2).mean(-1, keepdim=True)
+            return (x32 * torch.rsqrt(var + self.eps) * self.weight.float()).to(x.dtype)
 
 
 def relative_position_bucket(

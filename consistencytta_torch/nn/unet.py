@@ -22,6 +22,7 @@ from consistencytta_torch.nn.embeddings import (
     sinusoidal_embedding,
 )
 from consistencytta_torch.nn.layers import GroupNorm, nearest_upsample_2d
+from consistencytta_torch.utils import span
 
 
 class ResnetBlock2D(nn.Module):
@@ -39,12 +40,13 @@ class ResnetBlock2D(nn.Module):
         self.conv_shortcut = nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
 
     def forward(self, x, temb):
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
-        if self.conv_shortcut is not None:
-            x = self.conv_shortcut(x)
-        return x + h
+        with span("resnet"):
+            h = self.conv1(F.silu(self.norm1(x)))
+            h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
+            h = self.conv2(F.silu(self.norm2(h)))
+            if self.conv_shortcut is not None:
+                x = self.conv_shortcut(x)
+            return x + h
 
 
 class Downsample2D(nn.Module):

@@ -24,6 +24,7 @@ from consistencytta_torch.nn.layers import (
     swish,
 )
 from consistencytta_torch.ops.attention import flash_self_attention
+from consistencytta_torch.utils import span
 
 
 class ResnetBlock(nn.Module):
@@ -39,11 +40,12 @@ class ResnetBlock(nn.Module):
         self.nin_shortcut = nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
 
     def forward(self, x):
-        h = self.conv1(swish(self.norm1(x)))
-        h = self.conv2(swish(self.norm2(h)))
-        if self.nin_shortcut is not None:
-            x = self.nin_shortcut(x)
-        return x + h
+        with span("resnet"):
+            h = self.conv1(swish(self.norm1(x)))
+            h = self.conv2(swish(self.norm2(h)))
+            if self.nin_shortcut is not None:
+                x = self.nin_shortcut(x)
+            return x + h
 
 
 class AttnBlock(nn.Module):

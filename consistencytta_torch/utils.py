@@ -7,6 +7,13 @@ region, and phase timing that waits for the card where asked.
 `read_trace` reads the Chrome trace that `profile_trace` exports: the
 device's busy share of the traced window, kernel time by name, and the
 longest idle gaps with the host operation that ran during each.
+
+`span` names a range of the program's own code: the generate path's stages
+(`STAGE_SPANS`) and its modules (`norm`, `resnet`, `transformer`, `mrf`).
+Off, it costs one flag and the profiler's enabled check; under a running
+profiler it is a `record_function` range, on the same timeline as the
+kernels it launched; with a `Tracer` installed the stage spans are also kept
+in memory, with host clocks and CUDA events.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import json
 import os
 import random
 import time
+from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -189,3 +197,157 @@ def read_trace(trace, top: Optional[int] = 15, gaps: int = 5) -> dict:
         "gaps": [{"start_ms": (a - start) / 1e3, "ms": (b - a) / 1e3,
                   "host_op": host_op(a, b)} for a, b in idle],
     }
+
+
+# -- spans ------------------------------------------------------------------
+
+# the spans a Tracer keeps: a generate call and its stages
+STAGE_SPANS = ("generate", "t5", "unet", "vae_decode", "vocoder")
+_KEPT = frozenset(STAGE_SPANS)
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_tracer: Optional["Tracer"] = None  # the installed Tracer, if any
+
+
+class _NoSpan:
+    """The shared context of a span that records nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "tracer", "range", "record")
+
+    def __init__(self, name: str, tracer: Optional["Tracer"]):
+        self.name, self.tracer = name, tracer
+        self.range = self.record = None
+
+    def __enter__(self):
+        if _profiler_enabled():
+            self.range = torch.profiler.record_function(self.name)
+            self.range.__enter__()
+        if self.tracer is not None:
+            self.record = self.tracer._open(self.name)
+        return self.record
+
+    def __exit__(self, *exc):
+        if self.record is not None:
+            self.tracer._close(self.record)
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A named range of the program's code, as a context manager. With no
+    Tracer installed and no profiler running it returns the shared no-op
+    `NO_SPAN`: no allocation, no event, no device call. Under a running
+    profiler it enters `torch.profiler.record_function(name)`, which the
+    Chrome trace shows as a `user_annotation` range. A stage span
+    (`STAGE_SPANS`) under an installed Tracer also records a `SpanRecord`.
+    It never synchronises."""
+    tracer = _tracer if name in _KEPT else None
+    if tracer is None and not _profiler_enabled():
+        return NO_SPAN
+    return _Span(name, tracer)
+
+
+@dataclass
+class SpanRecord:
+    """One span a Tracer kept. `parent` is the index in `Tracer.spans` of
+    the kept span around it; `request` is the index of the root `generate`
+    span it lies in, the call's identifier (None outside a generate call);
+    `start` and `end` are `time.perf_counter()` at entry and exit; `events`
+    are the CUDA start and end events recorded on the current stream, None
+    on the CPU or while the stream captured a CUDA graph."""
+
+    name: str
+    parent: Optional[int]
+    request: Optional[int]
+    start: float
+    end: Optional[float] = None
+    events: Optional[Tuple[torch.cuda.Event, torch.cuda.Event]] = None
+
+
+class Tracer:
+    """Keeps the stage spans of every call made while it is installed
+    (`install()` / `remove()`, or `with Tracer(device):`). One Tracer is
+    installed at a time: installing one takes the place of any other. The
+    spans are kept in memory and read after the calls (`per_request`);
+    there is no exporter: a profiler trace holds the same ranges
+    (`profile_trace`)."""
+
+    def __init__(self, device="cpu"):
+        self.cuda = torch.device(device).type == "cuda"
+        self.spans: List[SpanRecord] = []
+        self.requests = 0  # root generate spans so far
+        self._stack: List[int] = []
+
+    def install(self) -> "Tracer":
+        global _tracer
+        _tracer = self
+        return self
+
+    def remove(self) -> None:
+        global _tracer
+        if _tracer is self:
+            _tracer = None
+
+    def __enter__(self) -> "Tracer":
+        return self.install()
+
+    def __exit__(self, *exc):
+        self.remove()
+        return False
+
+    def _event(self) -> torch.cuda.Event:
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def _open(self, name: str) -> SpanRecord:
+        parent = self._stack[-1] if self._stack else None
+        if parent is not None:
+            request = self.spans[parent].request
+        elif name == "generate":
+            request, self.requests = self.requests, self.requests + 1
+        else:
+            request = None
+        events = None
+        if self.cuda and not torch.cuda.is_current_stream_capturing():
+            events = (self._event(), None)
+        rec = SpanRecord(name, parent, request, time.perf_counter(), events=events)
+        self._stack.append(len(self.spans))
+        self.spans.append(rec)
+        return rec
+
+    def _close(self, rec: SpanRecord) -> None:
+        if rec.events is not None:
+            rec.events = (rec.events[0], self._event())
+        rec.end = time.perf_counter()
+        self._stack.pop()
+
+    def per_request(self) -> Dict[int, Dict[str, float]]:
+        """{request: {span name: ms summed over its spans in the call}} of
+        the spans inside generate calls: device ms from the spans' events
+        (waiting for them), else host-clock ms."""
+        out: Dict[int, Dict[str, float]] = {}
+        for rec in self.spans:
+            if rec.request is None or rec.end is None:
+                continue
+            if rec.events is not None:
+                rec.events[1].synchronize()
+                ms = rec.events[0].elapsed_time(rec.events[1])
+            else:
+                ms = 1e3 * (rec.end - rec.start)
+            per = out.setdefault(rec.request, {})
+            per[rec.name] = per.get(rec.name, 0.0) + ms
+        return out
