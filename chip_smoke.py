@@ -57,14 +57,16 @@ JSON lines:
   profile  consistencytta_torch/tools/profile_stages.py on the main phase's
            pipeline: the T5, UNet, VAE-decode and vocoder stages' median
            CUDA-event ms from the stage spans of 10 back-to-back 1-NFE
-           generate calls at batch 32, then one
-           torch.profiler trace of a whole 1-NFE generate call (after a
-           warm-up call), read by utils.read_trace: the card's busy share of
+           generate calls at batch 32 (CUDA-graph replays), then one
+           torch.profiler trace of a whole eager 1-NFE generate call (after
+           a warm-up call), read by utils.read_trace: the card's busy share of
            the call, the PROFILE_TOP kernels by summed time and the
            PROFILE_GAPS longest idle gaps with the host operation during
            each; K1, K2 and K3 must be in the trace under their launch names
-           with the launches of one call, and the counters must show the
-           launches of the phase's calls;
+           with the launches of one call, the counters must show the
+           launches of the phase's calls, and the graph counters that every
+           timed stage call was captured or replayed and every traced one
+           eager;
   bench    consistencytta_torch/tools/bench.py's main in this process: its
            one JSON line (clips/s at 1 NFE, batch 32, bf16; vs_baseline
            against the 18-step Heun CFG teacher measured in the same run;
@@ -1636,18 +1638,25 @@ PROFILE_GAPS = 5  # longest idle gaps of the traced generate call
 def profile_phase(torch, pipe, fused_levels, reset_counters, read_counters, trace_dir):
     """tools/profile_stages.py on the main phase's pipeline: the four stages'
     median CUDA-event ms from the stage spans of back-to-back 1-NFE generate
-    calls, then one traced 1-NFE
-    generate call at batch 32 (after a warm-up call) read by utils.read_trace:
-    the card's busy share, the top kernels, the longest idle gaps. K1-K3 must
-    be in the trace with the launches one call makes, and the counters must
-    show the launches the phase's calls imply."""
+    calls, which replay the stages' CUDA graphs, then one traced 1-NFE
+    generate call at batch 32 (after a warm-up call), both eager, read by
+    utils.read_trace: the card's busy share, the top kernels, the longest
+    idle gaps. K1-K3 must be in the trace with the launches one call makes,
+    the counters must show the launches the phase's calls imply (a replay
+    counts what it launched), and the graph counters that every timed call
+    of a stage was a capture or a replay and every traced one eager."""
     from consistencytta_torch.tools import profile_stages as ps
+    from consistencytta_torch.utils import GRAPH_EVENTS, graph_counts, reset_graph_counts
 
     reset_counters()
     t0 = time.perf_counter()
     s = ps.setup(pipe.device, pipeline=pipe)
+    reset_graph_counts()
     stages = ps.stage_times(s)
+    graphs = {"stage_times": graph_counts()}
+    reset_graph_counts()
     profile = ps.profile_generate(s, trace_dir, top=None, gaps=PROFILE_GAPS)
+    graphs["profile"] = graph_counts()
     seconds = time.perf_counter() - t0
     launches = read_counters()
     per_trace = ps.kernel_share(profile)
@@ -1667,10 +1676,16 @@ def profile_phase(torch, pipe, fused_levels, reset_counters, read_counters, trac
         "top_kernels": profile["top_kernels"][:PROFILE_TOP], "gaps": profile["gaps"],
         "k1_k3_in_trace": per_trace, "launch_names": ps.LAUNCH_NAMES,
         "launches": launches, "expected_launches": expected, "trace_mb": trace_mb,
-        "seconds": seconds,
+        "graphs": graphs, "seconds": seconds,
     }
     if profile["kernels"] == 0:
         fail("profile: the trace holds no CUDA kernel")
+    # (calls captured or replayed, eager calls) a stage: 1 + ITERS timed, 2 traced
+    for part, want in (("stage_times", (1 + ps.ITERS, 0)), ("profile", (0, 2))):
+        for stage in ("t5", "unet", "vae_decode", "vocoder"):
+            c = graphs[part].get(stage, dict.fromkeys(GRAPH_EVENTS, 0))
+            if (c["captures"] + c["replays"], c["eager"]) != want:
+                fail(f"profile: {part} {stage} graph counts {c}, expected (graphed, eager) {want}")
     for k, n in in_trace.items():
         if per_trace[k]["launches"] != n:
             fail(f"profile: {k} ({ps.LAUNCH_NAMES[k]}) launched {per_trace[k]['launches']} "

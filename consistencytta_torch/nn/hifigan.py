@@ -6,7 +6,8 @@ conv_pre (k7) -> per upsample level: leaky_relu(0.1) -> ConvTranspose1d ->
 the MRF level (3 multi-dilation ResBlocks, averaged) -> leaky_relu (default
 slope 0.01) -> conv_post -> tanh. The MRF levels of width <= 128 go through
 `ops.mrf.fused_mrf_level` (kernel K3 on the card); the wider levels run
-the plain chain of convolutions, its dilated convs split into phases.
+the plain chain of convolutions, its dilated convs split into phases. A
+frozen inference call replays a CUDA graph (graphs.py).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from consistencytta_torch import graphs
 from consistencytta_torch.configs import HiFiGANConfig
 from consistencytta_torch.ops.mrf import fused_mrf_level, mrf_level_plain
 from consistencytta_torch.utils import span
@@ -69,6 +71,9 @@ class HiFiGANGenerator(nn.Module):
         self.conv_post = nn.Conv1d(c0 // (2 ** len(cfg.upsample_rates)), 1, 7, padding=3)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        return graphs.run(self, "vocoder", self._forward, mel)
+
+    def _forward(self, mel):
         cfg = self.config
         x = self.conv_pre(mel.to(self.conv_pre.weight.dtype))
         nk = len(cfg.resblock_kernel_sizes)

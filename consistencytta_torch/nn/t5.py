@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from consistencytta_torch import graphs
 from consistencytta_torch.configs import T5Config
 from consistencytta_torch.utils import span
 
@@ -136,7 +137,7 @@ class T5Stack(nn.Module):
 
 class T5Encoder(nn.Module):
     """input_ids [B, L], attention_mask [B, L] -> hidden states [B, L, d]
-    in float32."""
+    in float32. A frozen inference call replays a CUDA graph (graphs.py)."""
 
     def __init__(self, config: T5Config = T5Config()):
         super().__init__()
@@ -145,6 +146,9 @@ class T5Encoder(nn.Module):
         self.encoder = T5Stack(config)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor):
+        return graphs.run(self, "t5", self._forward, input_ids, attention_mask)
+
+    def _forward(self, input_ids, attention_mask):
         cfg = self.config
         x = self.shared(input_ids.long())
         L = input_ids.shape[1]

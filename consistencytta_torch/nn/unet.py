@@ -3,7 +3,8 @@ UNet2DConditionGuided; `config.guided=False` gives the plain teacher UNet
 with no guidance term), with diffusers state-dict key names.
 
 The public call takes and returns NHWC latents [B, T, F, C], as the JAX
-package does; inside, the network runs NCHW in the dtype of its weights.
+package does; inside, the network runs NCHW in the dtype of its weights. A
+frozen inference call replays a CUDA graph (graphs.py).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from consistencytta_torch import graphs
 from consistencytta_torch.configs import UNetConfig
 from consistencytta_torch.nn.attention import Transformer2D
 from consistencytta_torch.nn.embeddings import (
@@ -157,6 +159,11 @@ class UNet2DConditionGuided(nn.Module):
         encoder_attention_mask: Optional[torch.Tensor] = None,
         guidance=None,
     ) -> torch.Tensor:
+        return graphs.run(self, "unet", self._forward, sample, timestep,
+                          encoder_hidden_states, encoder_attention_mask, guidance)
+
+    def _forward(self, sample, timestep, encoder_hidden_states, encoder_attention_mask,
+                 guidance):
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         dev = sample.device

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from consistencytta_torch import graphs
 from consistencytta_torch.configs import VAEConfig
 from consistencytta_torch.nn.layers import (
     GroupNorm,
@@ -163,7 +164,8 @@ class DiagonalGaussian:
 
 
 class Decoder(nn.Module):
-    """Latent NCHW -> mel image NCHW."""
+    """Latent NCHW -> mel image NCHW. A frozen inference call replays a CUDA
+    graph (graphs.py); `post_quant_conv` before it stays eager."""
 
     def __init__(self, cfg: VAEConfig):
         super().__init__()
@@ -187,6 +189,9 @@ class Decoder(nn.Module):
         self.conv_out = nn.Conv2d(block_in, cfg.out_channels, 3, padding=1)
 
     def forward(self, z):
+        return graphs.run(self, "vae_decode", self._forward, z)
+
+    def _forward(self, z):
         h = self.conv_in(z)
         h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
         for i in reversed(range(len(self.up))):

@@ -7,6 +7,11 @@ device and in-place version counter; the entry holds weak references to the
 tensors and is taken only while they all live, so a storage freed and reused
 by other tensors can never hit it. An in-place update (an optimizer step) or
 new tensors give a new pack; packs of tensors that died are dropped.
+
+While `graphs.run` captures a CUDA graph, a pack found here is handed to
+that graph, which holds it and makes it anew in place when its weights
+change in place; a pack made during the capture is made inside the graph,
+so each replay makes it from the weights it reads, and it is not kept here.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ from typing import Callable, Hashable, Sequence
 
 import torch
 
+from consistencytta_torch import graphs
+
 
 def cached_pack(cache: "OrderedDict[tuple, tuple]", size: int,
                 tensors: Sequence[torch.Tensor], extra: Hashable, make: Callable[[], object]):
@@ -25,12 +32,17 @@ def cached_pack(cache: "OrderedDict[tuple, tuple]", size: int,
     key = tuple((t.data_ptr(), tuple(t.shape), t.dtype, t.device, t._version)
                 for t in tensors) + (extra,)
     hit = cache.get(key)
+    capture = graphs.recording()
     if hit is not None and all(r() is t for r, t in zip(hit[0], tensors)):
         cache.move_to_end(key)
+        if capture is not None:
+            capture.keep(tensors, hit[1], make)
         return hit[1]
     for k in [k for k, (refs, _) in cache.items() if any(r() is None for r in refs)]:
         del cache[k]
     pack = make()
+    if capture is not None:
+        return pack
     cache[key] = (tuple(weakref.ref(t) for t in tensors), pack)
     while len(cache) > size:
         cache.popitem(last=False)

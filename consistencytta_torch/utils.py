@@ -13,7 +13,11 @@ longest idle gaps with the host operation that ran during each.
 Off, it costs one flag and the profiler's enabled check; under a running
 profiler it is a `record_function` range, on the same timeline as the
 kernels it launched; with a `Tracer` installed the stage spans are also kept
-in memory, with host clocks and CUDA events.
+in memory, with host clocks and CUDA events. A module span inside a
+CUDA-graph replay (`graphs.py`) records nothing: the replay runs no Python.
+
+`graph_counts` counts how the four stage modules' calls ran: captures,
+replays and eager calls per stage (`graphs.py`).
 """
 
 from __future__ import annotations
@@ -351,3 +355,28 @@ class Tracer:
             per = out.setdefault(rec.request, {})
             per[rec.name] = per.get(rec.name, 0.0) + ms
         return out
+
+
+# -- CUDA graphs of the stage modules ----------------------------------------
+
+# how a stage module's call ran (graphs.py): a capture (which replays the new
+# graph once), a replay of a graph captured before, or eagerly
+GRAPH_EVENTS = ("captures", "replays", "eager")
+_graph_counts: Dict[str, Dict[str, int]] = {}
+
+
+def count_graph(stage: str, event: str) -> None:
+    per = _graph_counts.get(stage)
+    if per is None:
+        per = _graph_counts[stage] = dict.fromkeys(GRAPH_EVENTS, 0)
+    per[event] += 1
+
+
+def graph_counts() -> Dict[str, Dict[str, int]]:
+    """{stage: {"captures": n, "replays": n, "eager": n}} since the last
+    `reset_graph_counts`, for the stages called since."""
+    return {stage: dict(per) for stage, per in _graph_counts.items()}
+
+
+def reset_graph_counts() -> None:
+    _graph_counts.clear()

@@ -120,6 +120,14 @@ def test_profile_stages_at_the_tiny_size(capsys):
     assert profile["kernels"] == 0 and profile["busy_share"] == 0  # no card, no kernels
     assert profile["window_ms"] > 0 and "trace" not in profile
     assert set(out["kernels_ms"]) == {"K1", "K2", "K3"}
+    # on the CPU every stage call runs eagerly: the timed calls and their
+    # warm-up, then the traced call and its warm-up
+    stages = ("t5", "unet", "vae_decode", "vocoder")
+    for part, calls in (("stage_times", 1 + profile_stages.ITERS), ("profile", 2)):
+        assert out["graphs"][part] == {s: {"captures": 0, "replays": 0, "eager": calls}
+                                       for s in stages}
+    assert [line["graphs"] for line in lines] == [out["graphs"]["stage_times"],
+                                                   out["graphs"]["profile"]]
 
 
 def test_profile_stages_kernel_share():
