@@ -8,8 +8,8 @@ source, in parallel, into `build/`), then runs thirteen phases, each printing
 JSON lines:
 
   env      card name and power limit (nvidia-smi), torch / CUDA versions,
-           kernel build seconds, and the attention, MRF, STFT and dilated-conv
-           kernels' registers, spills and shared memory;
+           kernel build seconds, and the attention, MRF, STFT, dilated-conv
+           and norm kernels' registers, spills and shared memory;
   kernel   each kernel against its plain PyTorch version on the same inputs
            at the shapes the driven paths give it (bf16; batch 32 and 1 for
            the generate path, 16 and 8 for the train step, 4 and 2 for the
@@ -42,14 +42,22 @@ JSON lines:
            batch 64, the CFG teacher's batch behind a generate batch of 32. The
            standalone dilated conv runs at B = 32, C = 64, L = 81936 for its
            six (k, d) pairs, beside F.conv1d, with its CUDA-graph device time
-           and host time a launch. A kernel's summed bound is the sum of
+           and host time a launch. The norm kernel (csrc/norm.cu) runs at
+           every distinct GroupNorm (+ SiLU), LayerNorm and RMSNorm call of a
+           batch-32 generate call, held to 1 bf16 ulp of its plain float32
+           version, with torch's own norm on the bf16 input as its library
+           call and a CUDA-graph device time. A kernel's summed bound is the sum of
            its shapes' bounds, each shape taken alone (not one roofline of
            the summed bytes and operations, which is lower where some shapes
            are bound by bytes and others by operations);
   main     the main path: Pipeline.create at the full PipelineConfig
            (random weights from a seed, bf16) and build_generate_fn(num_steps=1)
            answering hash-tokenized prompts at batch 1 and batch 32, with the
-           kernels' launch counters set to 0 just before and read just after;
+           kernels' launch counters set to 0 just before and read just after
+           (the norm kernel's too: one launch per GroupNorm, LayerNorm and
+           RMSNorm module of the three stages that hold them, per call; every
+           later phase holds it to the launches its module calls imply,
+           NormCalls);
            the waveform's shape and finiteness; a batch-1 clip against the same
            weights run in fp32 on the CPU through the plain versions; clips/s
            and latency (median, least and largest of 10 timed calls per batch
@@ -66,7 +74,8 @@ JSON lines:
            with the launches of one call, the counters must show the
            launches of the phase's calls, and the graph counters that every
            timed stage call was captured or replayed and every traced one
-           eager;
+           eager; the norm kernel's launches and ms in the trace, one
+           launch per norm module of the traced call;
   bench    consistencytta_torch/tools/bench.py's main in this process: its
            one JSON line (clips/s at 1 NFE, batch 32, bf16; vs_baseline
            against the 18-step Heun CFG teacher measured in the same run;
@@ -166,7 +175,9 @@ JSON lines:
            steps imply, its peak memory and the moment and EMA bytes it holds
            beside the single-rank run's. Where several cards are present,
            the training CLI with --num_devices <cards> over NCCL (2 steps);
-  kernels  one line naming every kernel with its launches, error and times.
+  kernels  one line naming every kernel with its launches on each path,
+           error and times (the norm kernel's launches summed over its three
+           counters).
 
 Then the nvidia-smi line, then the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -263,6 +274,70 @@ LEGACY_PREFIX = {"student": "consistency_unet.", "student_target": "consistency_
 SERVE_PLACES = ["", " nearby", " far away", " at night"]
 
 
+NORM_COUNTERS = ("group_norm", "layer_norm", "rms_norm")  # ops/norm.py's launch counters
+
+
+class NormCalls:
+    """The norm kernel's launches that a run's module calls imply. Every
+    GroupNorm, LayerNorm and RMSNorm of the port sits in one of four modules
+    (T5Encoder, the UNet, the VAE Encoder and Decoder), and a call of one of
+    them on CUDA tensors runs each of its norms once, one launch each.
+    `install` wraps the four modules' forward (a call that replays a CUDA
+    graph goes through it too, and so does a student forward recomputed in
+    the backward); `implied` has the launches per counter that the calls
+    since `reset` imply."""
+
+    def __init__(self):
+        self.counts = dict.fromkeys(NORM_COUNTERS, 0)
+        self.held = None
+
+    def install(self):
+        import weakref
+
+        import torch
+
+        from consistencytta_torch.nn.layers import GroupNorm, LayerNorm
+        from consistencytta_torch.nn.t5 import RMSNorm, T5Encoder
+        from consistencytta_torch.nn.unet import UNet2DConditionGuided
+        from consistencytta_torch.nn.vae import Decoder, Encoder
+
+        if self.held is not None:
+            return
+        self.held = weakref.WeakKeyDictionary()  # module -> its norms per counter
+        kinds = tuple(zip((GroupNorm, LayerNorm, RMSNorm), NORM_COUNTERS))
+
+        def counted(forward):
+            def wrapper(module, *args, **kwargs):
+                first = next((a for a in (*args, *kwargs.values()) if torch.is_tensor(a)), None)
+                if first is not None and first.is_cuda:
+                    held = self.held.get(module)
+                    if held is None:
+                        held = self.held[module] = {
+                            k: sum(isinstance(m, cls) for m in module.modules()) for cls, k in kinds}
+                    for k, n in held.items():
+                        self.counts[k] += n
+                return forward(module, *args, **kwargs)
+            return wrapper
+
+        for cls in (T5Encoder, UNet2DConditionGuided, Encoder, Decoder):
+            cls.forward = counted(cls.forward)
+
+    def reset(self):
+        self.counts = dict.fromkeys(NORM_COUNTERS, 0)
+
+    def implied(self) -> dict:
+        return dict(self.counts)
+
+
+NORMS = NormCalls()
+
+
+def with_norms(expected: dict) -> dict:
+    """`expected` (K1-K5) with the norm launches the module calls since the
+    last reset imply (NormCalls)."""
+    return {**expected, **NORMS.implied()}
+
+
 def serve_phase(torch, config, serve_dir, reset_counters, read_counters, fused_levels, tok,
                 dev):
     """The test-set CLI at full width from reference-format checkpoints of
@@ -321,6 +396,7 @@ def serve_phase(torch, config, serve_dir, reset_counters, read_counters, fused_l
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = read_counters()
+        expected = with_norms(expected)
         if counts != expected:
             fail(f"serve {argv}: launch counts {counts} != expected {expected}")
         return result, wall, counts
@@ -640,8 +716,9 @@ def eval_phase(torch, ctx, reset_counters, read_counters):
         # K4: one 512-point launch for the 32 generated files' mels and one for
         # the references' (one length, at most MEL_BATCH rows a launch)
         batches = -(-len(names) // MEL_BATCH)
-        expected = {"flash_mha_packed": 0, "flash_self_attention": 0, "fused_mrf_level": 0,
-                    "stft_magnitude": 2 * batches, "dilated_conv1d": 0}
+        expected = with_norms({"flash_mha_packed": 0, "flash_self_attention": 0,
+                               "fused_mrf_level": 0, "stft_magnitude": 2 * batches,
+                               "dilated_conv1d": 0})
         if counts != expected:
             fail(f"eval: launch counts {counts} != expected {expected}")
         check_result("evaluate_existing", result)
@@ -840,6 +917,7 @@ class CliRuns:
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         counts = self.read_counters()
+        expected = with_norms(expected)
         with open(summary) as f:
             records = [json.loads(x) for x in f.readlines()[n_before:]]
         epochs = [x for x in records if "epoch_seconds" in x]
@@ -1099,8 +1177,9 @@ def inference_run(torch, phase, model, replay, vae, test, out_dir, fused_levels,
     torch.cuda.synchronize()
     infer_s = time.perf_counter() - t0
     counts = read_counters()
-    expected = {"flash_mha_packed": 16, "flash_self_attention": 1,
-                "fused_mrf_level": fused_levels, "stft_magnitude": 1, "dilated_conv1d": 0}
+    expected = with_norms({"flash_mha_packed": 16, "flash_self_attention": 1,
+                           "fused_mrf_level": fused_levels, "stft_magnitude": 1,
+                           "dilated_conv1d": 0})
     wavs = sorted(n for n in os.listdir(out_dir) if n.endswith(".wav"))
     for n in wavs:
         sr, data = wavfile.read(os.path.join(out_dir, n))
@@ -1454,13 +1533,15 @@ def ddp_rank(mesh, config, out_pattern):
     out_pattern % rank."""
     import torch
 
-    from consistencytta_torch.ops import attention as att, mrf, stft, dilated_conv as dconv
+    from consistencytta_torch.ops import attention as att, mrf, norm, stft, dilated_conv as dconv
     from consistencytta_torch.parallel import mesh as pm
 
     counters = {"flash_mha_packed": att.flash_mha_packed,
                 "flash_self_attention": att.flash_self_attention,
                 "fused_mrf_level": mrf.fused_mrf_level, "stft_magnitude": stft.stft_magnitude_cuda,
-                "dilated_conv1d": dconv.dilated_conv1d}
+                "dilated_conv1d": dconv.dilated_conv1d,
+                **{k: getattr(norm, k) for k in NORM_COUNTERS}}
+    NORMS.install()
     t0 = time.perf_counter()
     run = DdpRun(torch, config, mesh.device)
     torch.cuda.synchronize()
@@ -1474,6 +1555,7 @@ def ddp_rank(mesh, config, out_pattern):
         gen = torch.Generator(device=mesh.device).manual_seed(DDP_SEED)
         for fn in counters.values():
             fn.launches = 0
+        NORMS.reset()
         torch.cuda.reset_peak_memory_stats()
         losses, seconds = [], []
         for i in range(DDP_STEPS if fault == "sound" else 1):
@@ -1487,6 +1569,7 @@ def ddp_rank(mesh, config, out_pattern):
         undo()
         out[fault] = {"losses": losses, "step_seconds": seconds,
                       "launches": {k: fn.launches for k, fn in counters.items()},
+                      "norm_implied": NORMS.implied(),
                       "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
                       "held_bytes": pm.held_bytes(state),
                       "checksum": ddp_checksum(torch, state.student),
@@ -1586,7 +1669,9 @@ def ddp_phase(torch, config, dev, out_dir):
     sound = merged["sound"]
     expected = {"flash_mha_packed": 16 * 4 * DDP_STEPS, "flash_self_attention": DDP_STEPS,
                 "fused_mrf_level": 0, "stft_magnitude": DDP_STEPS, "dilated_conv1d": 0}
-    per_rank = [{"launches": r["sound"]["launches"], "peak_memory_gb": r["sound"]["peak_memory_gb"],
+    per_rank = [{"launches": r["sound"]["launches"],
+                 "expected_launches": {**expected, **r["sound"]["norm_implied"]},
+                 "peak_memory_gb": r["sound"]["peak_memory_gb"],
                  "held_bytes": r["sound"]["held_bytes"],
                  "step_seconds": r["sound"]["step_seconds"],
                  "create_seconds": r["create_seconds"]} for r in ranks]
@@ -1599,8 +1684,7 @@ def ddp_phase(torch, config, dev, out_dir):
         "world": DDP_WORLD, "backend": "gloo, ranks sharing cuda:0", "steps": DDP_STEPS,
         "compared_every": DDP_STRIDE, "limits": TOL_DDP,
         "single_rank": single, "nccl_world_1": nccl, "sound": sound,
-        "faults": {f: merged[f] for f in DDP_FAULTS}, "ranks": per_rank,
-        "expected_launches_per_rank": expected, "cli_nccl": cli,
+        "faults": {f: merged[f] for f in DDP_FAULTS}, "ranks": per_rank, "cli_nccl": cli,
         "spawn_seconds": spawn_s, "phase_seconds": time.perf_counter() - t_phase,
     }
     emit(line)
@@ -1612,9 +1696,10 @@ def ddp_phase(torch, config, dev, out_dir):
     if missed:
         fail(f"ddp: the limits pass the planted faults {missed}")
     for r, rec in enumerate(per_rank):
-        if rec["launches"] != expected:
-            fail(f"ddp rank {r}: launch counts {rec['launches']} != expected {expected}")
-    return line, {k: sum(r["launches"][k] for r in per_rank) for k in expected}
+        if rec["launches"] != rec["expected_launches"]:
+            fail(f"ddp rank {r}: launch counts {rec['launches']} != expected "
+                 f"{rec['expected_launches']}")
+    return line, {k: sum(r["launches"][k] for r in per_rank) for k in per_rank[0]["launches"]}
 
 
 def ddp_cli(torch, out_dir, cards):
@@ -1635,7 +1720,8 @@ PROFILE_TOP = 15  # kernels by summed time in the profile phase's line
 PROFILE_GAPS = 5  # longest idle gaps of the traced generate call
 
 
-def profile_phase(torch, pipe, fused_levels, reset_counters, read_counters, trace_dir):
+def profile_phase(torch, pipe, fused_levels, norm_per_call, reset_counters, read_counters,
+                  trace_dir):
     """tools/profile_stages.py on the main phase's pipeline: the four stages'
     median CUDA-event ms from the stage spans of back-to-back 1-NFE generate
     calls, which replay the stages' CUDA graphs, then one traced 1-NFE
@@ -1644,7 +1730,9 @@ def profile_phase(torch, pipe, fused_levels, reset_counters, read_counters, trac
     idle gaps. K1-K3 must be in the trace with the launches one call makes,
     the counters must show the launches the phase's calls imply (a replay
     counts what it launched), and the graph counters that every timed call
-    of a stage was a capture or a replay and every traced one eager."""
+    of a stage was a capture or a replay and every traced one eager;
+    `norm_per_call`: the norm kernel's launches a generate call makes."""
+    from consistencytta_torch.ops import norm
     from consistencytta_torch.tools import profile_stages as ps
     from consistencytta_torch.utils import GRAPH_EVENTS, graph_counts, reset_graph_counts
 
@@ -1659,6 +1747,9 @@ def profile_phase(torch, pipe, fused_levels, reset_counters, read_counters, trac
     graphs["profile"] = graph_counts()
     seconds = time.perf_counter() - t0
     launches = read_counters()
+    norm_rows = [r for r in profile["top_kernels"] if norm.LAUNCH_NAME in r["name"]]
+    norm_in_trace = {"ms": sum(r["ms"] for r in norm_rows),
+                     "launches": sum(r["launches"] for r in norm_rows)}
     per_trace = ps.kernel_share(profile)
     trace_mb = os.path.getsize(profile.pop("trace")) / 2**20
     # generate calls: the stage timing's warm-up and timed ones, then the
@@ -1666,7 +1757,7 @@ def profile_phase(torch, pipe, fused_levels, reset_counters, read_counters, trac
     calls = 1 + ps.ITERS + 2
     expected = {"flash_mha_packed": 16 * calls, "flash_self_attention": calls,
                 "fused_mrf_level": fused_levels * calls, "stft_magnitude": 0,
-                "dilated_conv1d": 0}
+                "dilated_conv1d": 0, **{k: n * calls for k, n in norm_per_call.items()}}
     in_trace = {"K1": 16, "K2": 1, "K3": fused_levels}
     line = {
         "phase": "profile", "batch": s.z.shape[0], "stages_ms": stages,
@@ -1676,7 +1767,7 @@ def profile_phase(torch, pipe, fused_levels, reset_counters, read_counters, trac
         "top_kernels": profile["top_kernels"][:PROFILE_TOP], "gaps": profile["gaps"],
         "k1_k3_in_trace": per_trace, "launch_names": ps.LAUNCH_NAMES,
         "launches": launches, "expected_launches": expected, "trace_mb": trace_mb,
-        "graphs": graphs, "seconds": seconds,
+        "graphs": graphs, "seconds": seconds, "norm_in_trace": norm_in_trace,
     }
     if profile["kernels"] == 0:
         fail("profile: the trace holds no CUDA kernel")
@@ -1692,13 +1783,18 @@ def profile_phase(torch, pipe, fused_levels, reset_counters, read_counters, trac
                  f"times in the traced call, expected {n}")
     if launches != expected:
         fail(f"profile launch counts {launches} != expected {expected}")
+    if norm_in_trace["launches"] != sum(norm_per_call.values()):
+        fail(f"profile: the norm kernel ({norm.LAUNCH_NAME}) launched "
+             f"{norm_in_trace['launches']} times in the traced call, expected "
+             f"{sum(norm_per_call.values())}")
     return line, launches
 
 
 def bench_phase(torch, fused_levels, reset_counters, read_counters, smi):
     """tools/bench.py's main in this process: its one JSON line (printed by
     it), re-emitted with the phase's launch counts, which must be those of
-    11 student calls and 3 teacher calls of 35 queries at the CFG batch."""
+    11 student calls and 3 teacher calls of 35 queries at the CFG batch (the
+    norm kernel's: those the module calls imply)."""
     from consistencytta_torch.tools import bench
 
     reset_counters()
@@ -1709,9 +1805,10 @@ def bench_phase(torch, fused_levels, reset_counters, read_counters, smi):
     student = 1 + bench.ITERS["cuda"]
     teacher = (1 + bench.TEACHER_ITERS["cuda"]) * (2 * bench.TEACHER_STEPS - 1)
     calls = student + 1 + bench.TEACHER_ITERS["cuda"]  # each call decodes once
-    expected = {"flash_mha_packed": 16 * (student + teacher), "flash_self_attention": calls,
-                "fused_mrf_level": fused_levels * calls, "stft_magnitude": 0,
-                "dilated_conv1d": 0}
+    expected = with_norms({"flash_mha_packed": 16 * (student + teacher),
+                           "flash_self_attention": calls,
+                           "fused_mrf_level": fused_levels * calls, "stft_magnitude": 0,
+                           "dilated_conv1d": 0})
     numbers = [line[k] for k in ("value", "vs_baseline", "device_ms_per_call",
                                  "teacher_clips_per_sec")]
     if not all(isinstance(x, float) and x > 0 and x == x and x != float("inf")
@@ -1741,10 +1838,12 @@ def main() -> None:
         from consistencytta_torch.inference.generate import GenerateConfig, build_generate_fn
         from consistencytta_torch.models.pipeline import Pipeline
         from consistencytta_torch.nn.hifigan import FUSE_MAX_CHANNELS
+        from consistencytta_torch.nn.layers import GroupNorm, LayerNorm
+        from consistencytta_torch.nn.t5 import RMSNorm
         from consistencytta_torch.ops import _build
         from consistencytta_torch.ops import attention as att
         from consistencytta_torch.ops import dilated_conv as dconv
-        from consistencytta_torch.ops import mrf, schedulers, stft
+        from consistencytta_torch.ops import mrf, norm, schedulers, stft
         from consistencytta_torch.text.tokenizer import HashTokenizer, tokenize_with_uncond
         from consistencytta_torch.training import step as tstep
         from consistencytta_torch.training.optim import OptimizerConfig
@@ -1778,6 +1877,7 @@ def main() -> None:
         "mrf_ptxas": _build.resources("mrf"),
         "stft_ptxas": _build.resources("stft"),
         "dilated_conv_ptxas": _build.resources("dilated_conv"),
+        "norm_ptxas": _build.resources("norm"),
     })
 
     # -- kernels against their plain versions ---------------------------------
@@ -2207,6 +2307,52 @@ def main() -> None:
     del x
     torch.cuda.empty_cache()
 
+    # The norm kernel (csrc/norm.cu): every distinct GroupNorm (+ SiLU),
+    # LayerNorm and RMSNorm call of a 1-NFE generate call at batch 32,
+    # weighted by how often the call repeats (tools/norm_cases.py enumerates
+    # them on the meta device and makes inputs whose groups differ in scale
+    # and offset). Tolerance: record's 2^-7 of the largest output, and 1 bf16
+    # ulp of each output (`ulps`). The faults: eps outside the square root,
+    # the neighbour's statistics, the SiLU left off. plain: the float32 copy,
+    # torch's float32 norm and the cast back that the modules ran before the
+    # kernel; library: torch's own norm on the bf16 input (float32 inside;
+    # RMSNorm only where this torch has F.rms_norm), then F.silu where the
+    # kernel fuses it; device_ms: a replayed CUDA graph's time, without the
+    # host's launch; the bound: one bf16 read and one write of each element
+    # and the float32 affine at 3.35 TB/s.
+    from collections import Counter
+
+    from consistencytta_torch.tools import norm_cases as nb
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for (kind, shape, groups, eps, silu), per_call in sorted(
+            Counter(nb.generate_norms(*nb.CALLS["generate-b32"])).items()):
+        x, w, b = nb.inputs(kind, shape, groups, torch.bfloat16, gen)
+        call = (kind, x, w, b, groups, eps, silu)
+        kern = lambda: nb.kernel_call(*call)
+        plain = lambda: nb.plain_call(*call)
+        lib = (lambda: nb.library_call(*call)) if nb.has_library(kind) else None
+        counter = {"group": norm.group_norm, "layer": norm.layer_norm, "rms": norm.rms_norm}[kind]
+        got, want = launch(counter, kern), plain()
+        faults = ["eps_outside_sqrt", "neighbour_statistics"] + (["silu_left_off"] if silu else [])
+        mutants = {f: (nb.group_norm_fault(x, groups, w, b, eps, silu, f) if kind == "group"
+                       else nb.row_norm_fault(x, w, b, eps, kind == "rms", f)) for f in faults}
+        ulps = nb.ulps(got, want)
+        iters = max(3, int(2e8 // x.numel()))
+        device_ms, graph_error = graph_ms(kern, max(2, min(20, int(2**30 // (2 * x.numel())))))
+        record("norm", f"{kind} {tuple(shape)} groups={groups} silu={silu}", got, want, 2 ** -7,
+               mutants, cuda_ms(torch, kern, iters), cuda_ms(torch, plain, 3),
+               None if lib is None else cuda_ms(torch, lib, iters), 0.0,
+               nb.bound_ms(x, kind) * 1e-3 * PEAK_BYTES, per_call, ulps=ulps,
+               tol_ulps=nb.TOL_ULPS[torch.bfloat16], device_ms=device_ms,
+               device_ms_error=graph_error,
+               plan=norm.group_plan(shape[0] * groups, x[0].numel() // groups, 2, sms)
+               if kind == "group" else norm.rows_plan(x.numel() // shape[-1], shape[-1], 2, sms))
+        if ulps > nb.TOL_ULPS[torch.bfloat16]:
+            fail(f"norm {kind} {tuple(shape)}: {ulps} bf16 ulps from the plain version")
+        del x, w, b, got, want, mutants
+        torch.cuda.empty_cache()
+
     # -- main path --------------------------------------------------------------
     config = PipelineConfig()
     t0 = time.perf_counter()
@@ -2227,11 +2373,20 @@ def main() -> None:
                 "flash_self_attention": att.flash_self_attention,
                 "fused_mrf_level": mrf.fused_mrf_level,
                 "stft_magnitude": stft.stft_magnitude_cuda,
-                "dilated_conv1d": dconv.dilated_conv1d}
+                "dilated_conv1d": dconv.dilated_conv1d,
+                **{k: getattr(norm, k) for k in NORM_COUNTERS}}
+    # the norm kernel: one launch per norm module of the three stages that
+    # hold them (T5, the student UNet, the VAE decoder), per generate call
+    modules = [m for stage in (pipe.t5, pipe.unets["student_ema"], pipe.vae.decoder)
+               for m in stage.modules()]
+    norm_per_call = {k: sum(isinstance(m, cls) for m in modules)
+                     for k, cls in zip(NORM_COUNTERS, (GroupNorm, LayerNorm, RMSNorm))}
+    NORMS.install()
 
     def reset_counters():
         for fn in counters.values():
             fn.launches = 0
+        NORMS.reset()
 
     def read_counters():
         return {name: fn.launches for name, fn in counters.items()}
@@ -2259,7 +2414,8 @@ def main() -> None:
     fused_levels = sum(voc.upsample_initial_channel // 2 ** (i + 1) <= FUSE_MAX_CHANNELS
                        for i in range(len(voc.upsample_rates)))
     expected = {"flash_mha_packed": 16 * calls, "flash_self_attention": calls,
-                "fused_mrf_level": fused_levels * calls, "stft_magnitude": 0, "dilated_conv1d": 0}
+                "fused_mrf_level": fused_levels * calls, "stft_magnitude": 0, "dilated_conv1d": 0,
+                **{k: n * calls for k, n in norm_per_call.items()}}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     if launches != expected:
         fail(f"launch counts {launches} != expected {expected}")
@@ -2318,8 +2474,8 @@ def main() -> None:
     # -- profile: stage times and a traced generate call on main's pipeline -------
     trace_dir = os.path.join(root, "outputs", f"chip_smoke_profile_{os.getpid()}")
     try:
-        profile, profile_launches = profile_phase(torch, pipe, fused_levels, reset_counters,
-                                                  read_counters, trace_dir)
+        profile, profile_launches = profile_phase(torch, pipe, fused_levels, norm_per_call,
+                                                  reset_counters, read_counters, trace_dir)
     finally:
         shutil.rmtree(trace_dir, ignore_errors=True)
     emit(profile)
@@ -2405,8 +2561,9 @@ def main() -> None:
     # interval, two teacher queries on each later one, one for the last step.
     unet_queries = n_train_steps * 4 + (4 + 2 * (HEUN_STEPS - 2) + 1)
     calls_t = n_train_steps + 1
-    train_expected = {"flash_mha_packed": 16 * unet_queries, "flash_self_attention": calls_t,
-                      "fused_mrf_level": 0, "stft_magnitude": calls_t, "dilated_conv1d": 0}
+    train_expected = with_norms({"flash_mha_packed": 16 * unet_queries,
+                                 "flash_self_attention": calls_t, "fused_mrf_level": 0,
+                                 "stft_magnitude": calls_t, "dilated_conv1d": 0})
     if train_launches != train_expected:
         fail(f"train launch counts {train_launches} != expected {train_expected}")
 
@@ -2559,6 +2716,8 @@ def main() -> None:
                                 "consistencytta_tpu/ops/pallas_stft.py:89"),
         "dilated_conv1d": ("consistencytta_torch/csrc/dilated_conv.cu",
                            "consistencytta_tpu/ops/pallas_blockconv.py:204"),
+        "norm": ("consistencytta_torch/csrc/norm.cu",
+                 "none: XLA fuses consistencytta_tpu/nn/layers.py's norms"),
     }
     per = {
         "stft_magnitude": f"N = 1024: times per train step at micro-batch {TRAIN_BATCH}",
@@ -2584,11 +2743,13 @@ def main() -> None:
         b_ms = r["bound_ms"]
         b_by = max(("bytes", "operations"), key=lambda by: r[f"bound_{by}_ms"])
         counter = "stft_magnitude" if name.startswith("stft") else name
-        paths = {"generate": launches[counter], "profile": profile_launches[counter],
-                 "bench": bench_launches[counter], "train": train_launches[counter],
-                 "serve": serve_launches[counter], "eval": eval_launches[counter],
-                 "fit": fit_train[counter] + fit_infer[counter],
-                 "stage3": s3_train[counter] + s3_infer[counter], "ddp": ddp_launches[counter]}
+        keys = NORM_COUNTERS if name == "norm" else (counter,)
+        n = lambda counts: sum(counts[k] for k in keys)
+        paths = {"generate": n(launches), "profile": n(profile_launches),
+                 "bench": n(bench_launches), "train": n(train_launches),
+                 "serve": n(serve_launches), "eval": n(eval_launches),
+                 "fit": n(fit_train) + n(fit_infer), "stage3": n(s3_train) + n(s3_infer),
+                 "ddp": n(ddp_launches)}
         if counter == "stft_magnitude":
             # training runs take N = 1024, the inference CLI's eval mels N = 512
             n512 = name != counter

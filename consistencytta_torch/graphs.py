@@ -211,10 +211,11 @@ def _clone(out):
 def _launch_counters() -> tuple:
     global _counters
     if _counters is None:
-        from consistencytta_torch.ops import attention, dilated_conv, mrf, stft
+        from consistencytta_torch.ops import attention, dilated_conv, mrf, norm, stft
 
         _counters = (attention.flash_mha_packed, attention.flash_self_attention,
-                     mrf.fused_mrf_level, stft.stft_magnitude_cuda, dilated_conv.dilated_conv1d)
+                     mrf.fused_mrf_level, stft.stft_magnitude_cuda, dilated_conv.dilated_conv1d,
+                     norm.group_norm, norm.layer_norm, norm.rms_norm)
     return _counters
 
 

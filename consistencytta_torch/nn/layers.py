@@ -1,10 +1,13 @@
 """Shared building blocks in PyTorch's natural layouts (NCHW, NCL).
 
-Normalization statistics are taken in float32 whatever the compute dtype,
-with the two-pass formula, and the result is cast back to the input dtype.
 The normalization modules keep their affine parameters in float32
-(`keep_fp32`, see utils.cast_module). Their whole forward, casts included,
-is one `norm` span (utils.span).
+(`keep_fp32`, see utils.cast_module) and take float32 statistics whatever
+the compute dtype, with the two-pass formula, rounding the result to the
+input dtype once. On the card a call launches one kernel of `csrc/norm.cu`
+(`ops/norm.py`: bf16 or float32 in, the statistics, the affine and, where
+the caller asks, the SiLU after a GroupNorm in registers, the output
+written once); on the CPU it runs the plain float32 code. Their whole
+forward is one `norm` span (utils.span).
 """
 
 from __future__ import annotations
@@ -13,25 +16,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from consistencytta_torch.ops import norm
 from consistencytta_torch.utils import span
-
-
-def swish(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(x)
 
 
 class GroupNorm(nn.GroupNorm):
     """torch GroupNorm (consecutive channel groups) with float32 statistics
-    and affine, output cast back to the input dtype."""
+    and affine, output cast back to the input dtype; `silu` applies a SiLU
+    to the float32 result before that cast."""
 
     keep_fp32 = True
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
         with span("norm"):
-            return F.group_norm(
-                x.float(), self.num_groups, self.weight.float(), self.bias.float(),
-                self.eps,
-            ).to(x.dtype)
+            return norm.group_norm(x.contiguous(), self.num_groups, self.weight, self.bias,
+                                   self.eps, silu)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -41,10 +40,7 @@ class LayerNorm(nn.LayerNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with span("norm"):
-            return F.layer_norm(
-                x.float(), self.normalized_shape, self.weight.float(),
-                self.bias.float(), self.eps,
-            ).to(x.dtype)
+            return norm.layer_norm(x.contiguous(), self.weight, self.bias, self.eps)
 
 
 def nearest_upsample_2d(x: torch.Tensor, scale: int = 2) -> torch.Tensor:

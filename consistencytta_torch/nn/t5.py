@@ -17,11 +17,13 @@ from torch import nn
 
 from consistencytta_torch import graphs
 from consistencytta_torch.configs import T5Config
+from consistencytta_torch.ops import norm
 from consistencytta_torch.utils import span
 
 
 class RMSNorm(nn.Module):
-    """T5 LayerNorm: no mean subtraction, no bias; float32 statistics."""
+    """T5 LayerNorm: no mean subtraction, no bias; float32 statistics
+    (`ops.norm.rms_norm`)."""
 
     keep_fp32 = True
 
@@ -32,9 +34,7 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with span("norm"):
-            x32 = x.float()
-            var = x32.pow(2).mean(-1, keepdim=True)
-            return (x32 * torch.rsqrt(var + self.eps) * self.weight.float()).to(x.dtype)
+            return norm.rms_norm(x.contiguous(), self.weight, self.eps)
 
 
 def relative_position_bucket(

@@ -43,9 +43,9 @@ class ResnetBlock2D(nn.Module):
 
     def forward(self, x, temb):
         with span("resnet"):
-            h = self.conv1(F.silu(self.norm1(x)))
+            h = self.conv1(self.norm1(x, silu=True))
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-            h = self.conv2(F.silu(self.norm2(h)))
+            h = self.conv2(self.norm2(h, silu=True))
             if self.conv_shortcut is not None:
                 x = self.conv_shortcut(x)
             return x + h
@@ -212,5 +212,5 @@ class UNet2DConditionGuided(nn.Module):
             if hasattr(blk, "upsamplers"):
                 h = blk.upsamplers[0](h)
 
-        h = self.conv_out(F.silu(self.conv_norm_out(h)))
+        h = self.conv_out(self.conv_norm_out(h, silu=True))
         return h.permute(0, 2, 3, 1).float()

@@ -22,14 +22,13 @@ from consistencytta_torch.nn.layers import (
     GroupNorm,
     asymmetric_pad_downsample,
     nearest_upsample_2d,
-    swish,
 )
 from consistencytta_torch.ops.attention import flash_self_attention
 from consistencytta_torch.utils import span
 
 
 class ResnetBlock(nn.Module):
-    """GN(eps 1e-6) -> swish -> conv1 -> GN -> swish -> conv2 (+ 1x1
+    """GN(eps 1e-6) + SiLU -> conv1 -> GN + SiLU -> conv2 (+ 1x1
     nin_shortcut on a channel change)."""
 
     def __init__(self, in_ch: int, out_ch: int, groups: int):
@@ -42,8 +41,8 @@ class ResnetBlock(nn.Module):
 
     def forward(self, x):
         with span("resnet"):
-            h = self.conv1(swish(self.norm1(x)))
-            h = self.conv2(swish(self.norm2(h)))
+            h = self.conv1(self.norm1(x, silu=True))
+            h = self.conv2(self.norm2(h, silu=True))
             if self.nin_shortcut is not None:
                 x = self.nin_shortcut(x)
             return x + h
@@ -134,7 +133,7 @@ class Encoder(nn.Module):
             if i != len(self.down) - 1:
                 h = level.downsample(h)
         h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
-        return self.conv_out(swish(self.norm_out(h)))
+        return self.conv_out(self.norm_out(h, silu=True))
 
 
 class DiagonalGaussian:
@@ -200,7 +199,7 @@ class Decoder(nn.Module):
                 h = blk(h)
             if i != 0:
                 h = level.upsample(h)
-        return self.conv_out(swish(self.norm_out(h)))
+        return self.conv_out(self.norm_out(h, silu=True))
 
 
 class AutoencoderKLDecoder(nn.Module):

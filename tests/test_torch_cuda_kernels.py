@@ -13,6 +13,12 @@ and the relative L2 error at most 1e-2. bf16 rounding alone moves these
 outputs by about 0.5% on both measures; a wrong softmax scale or a dropped
 key tile moves them by 9% or more.
 
+The norm kernel (GroupNorm with or without its SiLU, LayerNorm, RMSNorm;
+bf16 and float32) is held in bf16 ulps of the output against its plain
+float32 version: 1 ulp in bf16 (each side rounds once), half a bf16 ulp in
+float32 (float32 sums in another order); the reasons and the planted
+faults it rejects are in consistencytta_torch/tools/norm_cases.py.
+
 The STFT magnitude (filters of 1024 and 512 samples) is float32 in and out
 and is held to float32 grade: the largest error at most 1e-5 of the output's
 largest magnitude (a float32 FFT and a float32 product of 1024 terms differ
@@ -27,7 +33,8 @@ import torch
 from consistencytta_torch.configs import STFTConfig
 from consistencytta_torch.ops import attention as ops
 from consistencytta_torch.ops import dilated_conv as dc
-from consistencytta_torch.ops import mrf, stft
+from consistencytta_torch.ops import mrf, norm, stft
+from consistencytta_torch.tools import norm_cases as nc
 
 KS = (3, 7, 11)
 DS = ((1, 3, 5),) * 3
@@ -535,3 +542,185 @@ def test_dilated_conv1d_refuses_what_it_does_not_take(gen):
     with pytest.raises(ValueError, match="shared memory"):
         dc.dilated_conv1d(x, w, 1000, 1000)  # a window of 2135 positions at C = 64
     assert dc.dilated_conv1d.launches == before
+
+
+# -- the norm kernel -------------------------------------------------------------
+
+NORM_DTYPES = (torch.bfloat16, torch.float32)
+NORM_COUNTERS = {"group": norm.group_norm, "layer": norm.layer_norm, "rms": norm.rms_norm}
+
+
+def _norm_check(kind, shape, groups, eps, silu, dtype, gen):
+    x, w, b = nc.inputs(kind, shape, groups, dtype, gen)
+    counter = NORM_COUNTERS[kind]
+    before = counter.launches
+    got = nc.kernel_call(kind, x, w, b, groups, eps, silu)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1 and got.dtype == dtype and got.shape == x.shape
+    want = nc.plain_call(kind, x, w, b, groups, eps, silu)
+    err = nc.ulps(got, want)
+    assert err <= nc.TOL_ULPS[dtype], (kind, shape, silu, dtype, err)
+    return x, w, b, got, want
+
+
+@pytest.mark.parametrize("dtype", NORM_DTYPES)
+@pytest.mark.parametrize("calls", sorted(nc.CALLS))
+def test_norm_at_every_shape_the_cells_send(gen, calls, dtype):
+    """Every distinct GroupNorm (with and without its SiLU), LayerNorm and
+    RMSNorm call of one generate call of the cell, at its batch."""
+    for kind, shape, groups, eps, silu in sorted(set(nc.generate_norms(*nc.CALLS[calls]))):
+        _norm_check(kind, shape, groups, eps, silu, dtype, gen)
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("kind,shape,groups,silu", [
+    ("group", (3, 48, 5, 3), 16, True),  # 45-element groups: no group starts aligned
+    ("group", (2, 64, 77), 32, False),  # NCL, 154-element groups
+    ("group", (1, 4, 1024, 1024), 1, True),  # 8 MB groups: streamed through shared memory
+    ("group", (1, 8, 5, 5), 8, False),  # a group of one channel
+    ("layer", (3, 77, 255), 0, False),  # rows not a whole number of blocks
+    ("layer", (1, 1, 1), 0, False),
+    ("rms", (4, 33, 96), 0, False)])
+@pytest.mark.parametrize("dtype", NORM_DTYPES)
+def test_norm_at_shapes_off_the_path(gen, kind, shape, groups, silu, dtype):
+    _norm_check(kind, shape, groups, 1e-5, silu, dtype, gen)
+
+
+@pytest.mark.parametrize("kind,shape,groups,silu,eps", [
+    ("group", (2, 128, 256, 64), 32, True, 1e-6),  # VAE decoder groups: eight blocks each
+    ("group", (2, 256, 64, 64), 32, True, 1e-5),
+    ("group", (2, 1024, 8, 8), 32, False, 1e-6),
+    ("layer", (2, 1024, 255), 0, False, 1e-5),
+    ("rms", (4, 64, 1024), 0, False, 1e-6)])
+@pytest.mark.parametrize("dtype", NORM_DTYPES)
+def test_norm_tolerance_rejects_planted_faults(gen, kind, shape, groups, silu, eps, dtype):
+    """The kernel passes; the plain version with eps outside the square
+    root, one group or row normalised with its neighbour's statistics, a
+    one-pass variance (float32 inputs: tools/norm_cases.py) or the
+    SiLU left off fails the same tolerance."""
+    x, w, b, _, want = _norm_check(kind, shape, groups, eps, silu, dtype, gen)
+    faults = nc.GROUP_FAULTS if kind == "group" else nc.ROW_FAULTS
+    for fault in faults:
+        if (fault == "silu_left_off" and not silu) or (
+                fault == "one_pass_variance" and (dtype != torch.float32 or kind == "rms")):
+            continue
+        if kind == "group":
+            bad = nc.group_norm_fault(x, groups, w, b, eps, silu, fault)
+        else:
+            bad = nc.row_norm_fault(x, w, b, eps, kind == "rms", fault)
+        assert not nc.close(bad, want), fault
+
+
+@pytest.mark.parametrize("kind,shape,groups", [("group", (2, 96, 33, 7), 32),
+                                               ("group", (1, 128, 512, 64), 32),
+                                               ("layer", (2, 301, 255), 0),
+                                               ("rms", (3, 5, 1024), 0)])
+def test_norm_writes_nothing_outside_its_output(gen, kind, shape, groups):
+    """The output lands inside a longer buffer filled with a sentinel; every
+    element before and after it keeps it."""
+    x, w, b = nc.inputs(kind, shape, groups, torch.bfloat16, gen)
+    n, pad = x.numel(), 4096
+    buffer = torch.full((n + 2 * pad,), -7.0, device="cuda", dtype=torch.bfloat16)
+    out = buffer[pad:pad + n].view(shape)
+    if kind == "group":
+        norm._group_cuda(x, groups, w, b, 1e-5, True, out=out)
+        want = norm.group_norm_plain(x, groups, w, b, 1e-5, True)
+    elif kind == "layer":
+        norm._layer_cuda(x, w, b, 1e-5, out=out)
+        want = norm.layer_norm_plain(x, w, b, 1e-5)
+    else:
+        norm._rms_cuda(x, w, 1e-6, out=out)
+        want = norm.rms_norm_plain(x, w, 1e-6)
+    torch.cuda.synchronize()
+    assert (buffer[:pad] == -7.0).all() and (buffer[pad + n:] == -7.0).all()
+    assert nc.close(out, want)
+
+
+def test_norm_on_an_unaligned_view(gen):
+    x, w, b = nc.inputs("layer", (2, 50, 255), 0, torch.bfloat16, gen)
+    longer = torch.empty(x.numel() + 1, device="cuda", dtype=torch.bfloat16)
+    shifted = longer[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16
+    assert nc.close(norm.layer_norm(shifted, w, b, 1e-5), norm.layer_norm_plain(x, w, b, 1e-5))
+
+
+def test_norm_capture_and_replay_equal_the_eager_call(gen):
+    """One GroupNorm + SiLU, LayerNorm and RMSNorm captured in a CUDA graph:
+    the replay equals the eager calls bit for bit, on the captured inputs and
+    on new values copied into them; two eager calls are equal too."""
+    xg, wg, bg = nc.inputs("group", (2, 128, 128, 32), 32, torch.bfloat16, gen)
+    xl, wl, bl = nc.inputs("layer", (2, 1024, 510), 0, torch.bfloat16, gen)
+    xr, wr, _ = nc.inputs("rms", (2, 64, 1024), 0, torch.bfloat16, gen)
+
+    def calls():
+        return (norm.group_norm(xg, 32, wg, bg, 1e-6, True), norm.layer_norm(xl, wl, bl, 1e-5),
+                norm.rms_norm(xr, wr, 1e-6))
+
+    eager = calls()
+    assert all(torch.equal(a, e) for a, e in zip(calls(), eager))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = calls()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, e) for a, e in zip(static, eager))
+    for t in (xg, xl, xr):
+        t.copy_(t.flip(0))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, e) for a, e in zip(static, calls()))
+
+
+@pytest.mark.parametrize("kind,shape,groups,silu", [("group", (2, 64, 32, 16), 32, True),
+                                                    ("group", (2, 128, 64, 64), 32, False),
+                                                    ("layer", (2, 256, 255), 0, False),
+                                                    ("rms", (2, 64, 1024), 0, False)])
+def test_norm_gradient_is_the_plain_gradient(gen, kind, shape, groups, silu):
+    """As the student's backward takes it: bf16 x and the float32 affine
+    require grad; the forward launches the kernel, and the gradients are
+    autograd through the plain version, bit for bit."""
+    x0, w0, b0 = nc.inputs(kind, shape, groups, torch.bfloat16, gen)
+    g = torch.randn(shape, device="cuda", generator=gen).bfloat16()
+
+    def grads(call):
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        b = None if b0 is None else b0.clone().requires_grad_()
+        out = call(kind, x, w, b, groups, 1e-5, silu)
+        return out, torch.autograd.grad(out, [t for t in (x, w, b) if t is not None], g)
+
+    before = NORM_COUNTERS[kind].launches
+    out, got = grads(nc.kernel_call)
+    assert NORM_COUNTERS[kind].launches == before + 1
+    want_out, want = grads(nc.plain_call)
+    assert nc.close(out, want_out)
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype and torch.equal(a, e)
+
+
+def test_norm_refuses_what_it_does_not_take(gen):
+    x = torch.randn(2, 64, 10, device="cuda", generator=gen)
+    w = torch.ones(64, device="cuda")
+    before = {k: f.launches for k, f in NORM_COUNTERS.items()}
+    with pytest.raises(TypeError):
+        norm.group_norm(x.half(), 32, w, w, 1e-5)
+    with pytest.raises(ValueError):
+        norm.group_norm(x, 24, w, w, 1e-5)  # 24 groups do not divide 64 channels
+    with pytest.raises(ValueError):
+        norm.group_norm(x.transpose(1, 2).contiguous().transpose(1, 2), 32, w, w, 1e-5)
+    with pytest.raises(ValueError):
+        norm.layer_norm(x, w, w, 1e-5)  # an affine of 64 over rows of 10
+    with pytest.raises(ValueError):
+        norm.rms_norm(x, w[:10].cpu(), 1e-6)
+    # rows wider than a warp holds
+    wide = torch.randn(2, 5, 1500, device="cuda", generator=gen)
+    with pytest.raises(ValueError, match="a warp holds"):
+        norm.layer_norm(wide, torch.ones(1500, device="cuda"), None, 1e-5)
+    with pytest.raises(ValueError, match="a warp holds"):
+        norm.rms_norm(wide[..., :1025].contiguous(), torch.ones(1025, device="cuda"), 1e-6)
+    assert {k: f.launches for k, f in NORM_COUNTERS.items()} == before

@@ -12,7 +12,8 @@ each module and end to end at batch 1 (text lengths 8, 40, 8 interleaved) and
 at batch 32; a returned waveform outlives the next call; forward hooks fire
 around a replay and their events bracket its kernels; a replay reads the
 vocoder's weight packs after they left their cache, and weights loaded in
-place; the graph and launch counters read what the calls imply. The file
+place; the graph and launch counters read what the calls imply, and every
+norm of a call launches the norm kernel. The file
 imports nothing of JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_graphs.py -q
@@ -353,3 +354,22 @@ def test_counters_read_what_the_calls_imply(card):
         for s in STAGES:
             assert counts[s][event] == 1, (s, counts)
     assert utils.graph_counts() == {s: {"captures": 1, "replays": 1, "eager": 1} for s in STAGES}
+
+
+@pytest.mark.cuda
+def test_every_norm_of_a_call_launches_the_norm_kernel(card):
+    """Every GroupNorm, LayerNorm and RMSNorm of a 1-NFE generate call is
+    one launch of the norm kernel (ops/norm.py), captured, replayed or
+    eager: 85, 48 and 49 a call."""
+    from consistencytta_torch.ops import norm
+
+    text = _text(card.config, 2, 19, 0)  # a shape no other test calls
+    counters = (norm.group_norm, norm.layer_norm, norm.rms_norm)
+    for i, ctx in enumerate((None, None, graphs.eager())):
+        start = [f.launches for f in counters]
+        if ctx is None:
+            _generate(card, text, i)
+        else:
+            with ctx:
+                _generate(card, text, i)
+        assert [f.launches - n for f, n in zip(counters, start)] == [85, 48, 49]

@@ -1,0 +1,188 @@
+"""The norm wrapper (ops/norm.py) on the CPU: its plain route is the
+float32 code the modules ran before the kernel, bit for bit; the fused
+SiLU is the SiLU of the float32 norm; the autograd.Function's gradient is
+autograd through the plain version; the launch plans cover every row; and
+the card tests' tolerance (tools/norm_cases.py) rejects each planted fault
+on their inputs.
+The kernel itself runs only on the card (tests/test_torch_cuda_kernels.py)."""
+
+import pytest
+import torch
+import torch.nn.functional as F
+
+from consistencytta_torch.nn.layers import GroupNorm, LayerNorm
+from consistencytta_torch.nn.t5 import RMSNorm
+from consistencytta_torch.ops import norm
+from consistencytta_torch.tools import norm_cases as common
+
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _module(kind, width, gen):
+    m = {"group": lambda: GroupNorm(8, width, eps=1e-6), "layer": lambda: LayerNorm(width),
+         "rms": lambda: RMSNorm(width, 1e-6)}[kind]()
+    with torch.no_grad():
+        for p in m.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen))
+    return m
+
+
+def _before(kind, m, x):
+    """The modules' forward before the kernel, as it was written."""
+    if kind == "group":
+        return F.group_norm(x.float(), m.num_groups, m.weight.float(), m.bias.float(),
+                            m.eps).to(x.dtype)
+    if kind == "layer":
+        return F.layer_norm(x.float(), m.normalized_shape, m.weight.float(), m.bias.float(),
+                            m.eps).to(x.dtype)
+    x32 = x.float()
+    var = x32.pow(2).mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + m.eps) * m.weight.float()).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind,shape", [("group", (2, 64, 6, 5)), ("group", (3, 32, 77)),
+                                        ("layer", (2, 37, 255)), ("rms", (2, 9, 64))])
+def test_plain_route_is_the_modules_code_before_the_kernel(kind, shape, dtype):
+    gen = torch.Generator().manual_seed(1)
+    m = _module(kind, shape[1] if kind == "group" else shape[-1], gen)
+    x = common.structured(shape, dtype, gen, 8 if kind == "group" else shape[1])
+    with torch.no_grad():
+        assert torch.equal(m(x), _before(kind, m, x))
+    if kind == "group":  # non-contiguous input: the module's copy, same numbers
+        xt = x.transpose(-1, -2).contiguous().transpose(-1, -2)
+        with torch.no_grad():
+            assert torch.equal(m(xt), _before(kind, m, x))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_silu_is_the_silu_of_the_float32_norm(dtype):
+    """SiLU as y * sigmoid(y), the VAE's swish before the kernel and the JAX
+    package's form in both networks."""
+    gen = torch.Generator().manual_seed(2)
+    x = common.structured((2, 64, 40), dtype, gen, 32)
+    w, b = common.affine(64, gen)
+    y = F.group_norm(x.float(), 32, w, b, 1e-5)
+    want = (y * torch.sigmoid(y)).to(dtype)
+    assert torch.equal(norm.group_norm(x, 32, w, b, 1e-5, silu=True), want)
+    m = GroupNorm(32, 64, eps=1e-5)
+    with torch.no_grad():
+        m.weight.copy_(w)
+        m.bias.copy_(b)
+        assert torch.equal(m(x, silu=True), want)
+    # not the SiLU of the rounded norm (the modules' order before the kernel)
+    if dtype == torch.bfloat16:
+        assert not torch.equal(want, F.silu(norm.group_norm(x, 32, w, b, 1e-5)))
+    # the VAE's float32 path before the kernel, bit for bit
+    x32 = x.float()
+    assert torch.equal(norm.group_norm(x32, 32, w, b, 1e-5, silu=True),
+                       (lambda h: h * torch.sigmoid(h))(F.group_norm(x32, 32, w, b, 1e-5)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["group", "group_silu", "layer", "rms"])
+@pytest.mark.parametrize("needs", ["x", "params", "all"])
+def test_function_gradient_is_autograd_through_the_plain_version(kind, dtype, needs):
+    gen = torch.Generator().manual_seed(3)
+    base = kind.split("_")[0]
+    shape = {"group": (2, 16, 5, 7), "layer": (2, 11, 24), "rms": (3, 5, 32)}[base]
+    x0 = common.structured(shape, dtype, gen, 4 if base == "group" else shape[1])
+    w0, b0 = common.affine(shape[1] if base == "group" else shape[-1], gen, bias=base != "rms")
+    g = torch.randn(shape, generator=gen).to(dtype)
+    args = {"group": (4, 1e-5, kind.endswith("silu")), "layer": (1e-5,), "rms": (1e-6,)}[base]
+
+    def grads(fn):
+        x, w = x0.clone().requires_grad_(needs != "params"), w0.clone().requires_grad_(
+            needs != "x")
+        b = None if b0 is None else b0.clone().requires_grad_(needs != "x")
+        out = fn(x, w, b)
+        leaves = [t for t in (x, w, b) if t is not None and t.requires_grad]
+        return out, torch.autograd.grad(out, leaves, g)
+
+    got_out, got = grads(lambda x, w, b: norm._Norm.apply(x, w, b, base, args))
+    want_out, want = grads(lambda x, w, b: norm._PLAIN[base](x, w, b, *args))
+    assert torch.equal(got_out, want_out)
+    assert len(got) == len(want)
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype and torch.equal(a, e)
+
+
+@pytest.mark.parametrize("n_rows,row_len,itemsize", [
+    (1024, 262144, 2), (32, 262144, 2), (8, 262144, 2), (32, 262144, 4), (1024, 32768, 2),
+    (32, 32768, 2), (1024, 2048, 2), (16, 65536, 2), (3, 7, 2), (5, 77, 4), (1, 4_000_000, 2),
+    (2, 1024, 4)])
+def test_group_plan_covers_each_row(n_rows, row_len, itemsize):
+    split, chunk, tile = norm.group_plan(n_rows, row_len, itemsize, 132)
+    vec = 16 // itemsize
+    assert split in (1, 2, 4, 8) and chunk % vec == 0 and tile % vec == 0
+    assert split * chunk >= row_len and (split - 1) * chunk < row_len
+    assert (tile + 2 * vec) * itemsize <= norm.RESIDENT_BYTES + 64
+    resident = chunk <= tile
+    assert resident == (chunk * itemsize <= norm.RESIDENT_BYTES)
+    if chunk * itemsize > norm.CHUNK_BYTES:
+        assert split == norm.MAX_SPLIT
+    if n_rows * split < 2 * 132 and split < norm.MAX_SPLIT:
+        assert -(-row_len // (2 * split * vec)) * vec * itemsize < norm.MIN_CHUNK_BYTES
+
+
+def test_group_plan_at_the_paths_shapes():
+    # VAE decoder groups (4 channels x 65,536 positions): eight blocks of 64 KB
+    assert norm.group_plan(32 * 32, 4 * 65536, 2, 132) == (8, 32768, 32768)
+    # batch 1 still gives 256 blocks; UNet level 0 at batch 32 two blocks a group
+    assert norm.group_plan(32, 8 * 4096, 2, 132) == (8, 4096, 4096)
+    assert norm.group_plan(32 * 32, 8 * 4096, 2, 132) == (2, 16384, 16384)
+
+
+@pytest.mark.parametrize("n_rows,width,itemsize", [(131072, 255, 2), (4096, 255, 2),
+                                                   (2048, 1024, 2), (64, 1020, 2),
+                                                   (5, 1024, 4), (1, 1, 2)])
+def test_rows_plan_fits_the_block(n_rows, width, itemsize):
+    r = norm.rows_plan(n_rows, width, itemsize, 132)
+    assert r >= 1 and (r * width <= norm.ROWS_SPAN_BYTES // itemsize or r == 1)
+    assert r >= min(8, norm.ROWS_SPAN_BYTES // (width * itemsize))
+
+
+@pytest.mark.parametrize("fault", common.GROUP_FAULTS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tolerance_rejects_group_norm_faults(fault, dtype):
+    """On the card tests' inputs the plain version meets its own tolerance
+    and each planted fault fails it (the one-pass variance on float32
+    inputs: module doc of tools/norm_cases.py)."""
+    if fault == "one_pass_variance" and dtype == torch.bfloat16:
+        dtype = torch.float32
+    gen = torch.Generator().manual_seed(4)
+    x = common.structured((2, 256, 16, 16), dtype, gen, 32)
+    w, b = common.affine(256, gen)
+    want = norm.group_norm_plain(x, 32, w, b, 1e-6, True)
+    assert common.close(common.group_norm_fault(x, 32, w, b, 1e-6, True, "none"), want)
+    assert not common.close(common.group_norm_fault(x, 32, w, b, 1e-6, True, fault), want)
+
+
+@pytest.mark.parametrize("rms,fault", [(False, f) for f in common.ROW_FAULTS] +
+                         [(True, f) for f in common.ROW_FAULTS if f != "one_pass_variance"])
+def test_tolerance_rejects_row_norm_faults(fault, rms):
+    """As for GroupNorm; RMSNorm takes no mean, so it has no one-pass
+    variance to plant."""
+    gen = torch.Generator().manual_seed(5)
+    dtype = torch.float32 if fault == "one_pass_variance" else torch.bfloat16
+    x = common.structured((2, 64, 255), dtype, gen, 64)
+    w, b = common.affine(255, gen, bias=not rms)
+    want = norm.rms_norm_plain(x, w, 1e-6) if rms else norm.layer_norm_plain(x, w, b, 1e-5)
+    eps = 1e-6 if rms else 1e-5
+    assert common.close(common.row_norm_fault(x, w, b, eps, rms, "none"), want)
+    assert not common.close(common.row_norm_fault(x, w, b, eps, rms, fault), want)
+
+
+def test_a_generate_call_sends_the_counted_norms():
+    """The meta-device enumeration the card tests sweep: at batch 32 and 64
+    tokens, 85 GroupNorms (61 UNet, 24 VAE; 68 with the SiLU), 48
+    LayerNorms and 49 RMSNorms, 5.97 G elements, 29 distinct calls."""
+    calls = common.generate_norms(*common.CALLS["generate-b32"])
+    count = lambda kind, silu=None: sum(1 for c in calls if c[0] == kind
+                                        and (silu is None or c[4] == silu))
+    assert (count("group"), count("layer"), count("rms")) == (85, 48, 49)
+    assert count("group", True) == 45 + 23  # every resnet norm, conv_norm_out, norm_out
+    elements = sum(torch.Size(c[1]).numel() for c in calls)
+    assert elements == pytest.approx(5.97e9, rel=1e-3)
+    assert len(set(calls)) == 29
+    assert sorted({c[1][-1] for c in calls if c[0] == "layer"}) == [255, 510, 1020]
