@@ -2313,7 +2313,9 @@ def main() -> None:
     # them on the meta device and makes inputs whose groups differ in scale
     # and offset). Tolerance: record's 2^-7 of the largest output, and 1 bf16
     # ulp of each output (`ulps`). The faults: eps outside the square root,
-    # the neighbour's statistics, the SiLU left off. plain: the float32 copy,
+    # the neighbour's statistics, the SiLU left off, and for the transformer's
+    # padded LayerNorm rows (n true features of 256 / 512 / 1024) the
+    # statistics divided by the width. plain: the float32 copy,
     # torch's float32 norm and the cast back that the modules ran before the
     # kernel; library: torch's own norm on the bf16 input (float32 inside;
     # RMSNorm only where this torch has F.rms_norm), then F.silu where the
@@ -2325,24 +2327,26 @@ def main() -> None:
     from consistencytta_torch.tools import norm_cases as nb
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for (kind, shape, groups, eps, silu), per_call in sorted(
+    for (kind, shape, groups, eps, silu, n), per_call in sorted(
             Counter(nb.generate_norms(*nb.CALLS["generate-b32"])).items()):
-        x, w, b = nb.inputs(kind, shape, groups, torch.bfloat16, gen)
-        call = (kind, x, w, b, groups, eps, silu)
+        x, w, b = nb.inputs(kind, shape, groups, torch.bfloat16, gen, n)
+        call = (kind, x, w, b, groups, eps, silu, n)
         kern = lambda: nb.kernel_call(*call)
         plain = lambda: nb.plain_call(*call)
         lib = (lambda: nb.library_call(*call)) if nb.has_library(kind) else None
         counter = {"group": norm.group_norm, "layer": norm.layer_norm, "rms": norm.rms_norm}[kind]
         got, want = launch(counter, kern), plain()
-        faults = ["eps_outside_sqrt", "neighbour_statistics"] + (["silu_left_off"] if silu else [])
+        faults = (["eps_outside_sqrt", "neighbour_statistics"] + (["silu_left_off"] if silu else [])
+                  + ([nb.PAD_FAULT] if 0 < n < shape[-1] else []))
         mutants = {f: (nb.group_norm_fault(x, groups, w, b, eps, silu, f) if kind == "group"
-                       else nb.row_norm_fault(x, w, b, eps, kind == "rms", f)) for f in faults}
+                       else nb.row_norm_fault(x, w, b, eps, kind == "rms", f, n or None))
+                   for f in faults}
         ulps = nb.ulps(got, want)
         iters = max(3, int(2e8 // x.numel()))
         device_ms, graph_error = graph_ms(kern, max(2, min(20, int(2**30 // (2 * x.numel())))))
-        record("norm", f"{kind} {tuple(shape)} groups={groups} silu={silu}", got, want, 2 ** -7,
-               mutants, cuda_ms(torch, kern, iters), cuda_ms(torch, plain, 3),
-               None if lib is None else cuda_ms(torch, lib, iters), 0.0,
+        label = f"{kind} {tuple(shape)} groups={groups} silu={silu} n={n}"
+        record("norm", label, got, want, 2 ** -7, mutants, cuda_ms(torch, kern, iters),
+               cuda_ms(torch, plain, 3), None if lib is None else cuda_ms(torch, lib, iters), 0.0,
                nb.bound_ms(x, kind) * 1e-3 * PEAK_BYTES, per_call, ulps=ulps,
                tol_ulps=nb.TOL_ULPS[torch.bfloat16], device_ms=device_ms,
                device_ms_error=graph_error,

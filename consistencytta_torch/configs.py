@@ -92,7 +92,10 @@ class UNetConfig(JsonConfig):
 
     `attention_head_dim` is the number of attention *heads* per level (the
     diffusers misnomer); the head width is channels // heads, which gives
-    transformer inner dims 255/510/1020 for the light config.
+    transformer inner dims 255/510/1020 for the light config (head width
+    51). The parameters keep those widths; on the way through, the
+    transformer carries its tokens zero-padded to 256/512/1024 and its
+    heads to 64, and its GEGLU's hidden 1020 to 1024 (`nn/attention.py`).
     """
 
     in_channels: int = 8

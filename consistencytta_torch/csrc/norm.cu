@@ -48,7 +48,10 @@
 //     aligned), a warp takes a row at a time into registers (E <= 32
 //     elements a lane), reduces with shuffles, writes the normalised row
 //     back into shared memory, and the block stores the span with 16-byte
-//     vectors.
+//     vectors. A row of D elements may hold n <= D true features followed
+//     by padding (the UNet transformer's rows of 256 that hold 255): the
+//     statistics and the affine take the first n, and the last D - n
+//     outputs are written as 0, whatever the input holds there.
 // Neither allocates anything; the wrapper (ops/norm.py) allocates the output
 // and plans the launch (group_plan, rows_plan). Both capture into CUDA
 // graphs: a launch reads only its arguments.
@@ -181,7 +184,7 @@ __device__ __forceinline__ float act(float v) {
 template <typename T, bool RMS, int E>
 __global__ void __launch_bounds__(NT) ctta_norm_rows_kernel(
     const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ w,
-    const float* __restrict__ b, long long n_rows, int D, int R, float eps) {
+    const float* __restrict__ b, long long n_rows, int D, int n, int R, float eps) {
   constexpr int N = Vec<T>::N;
   extern __shared__ __align__(16) unsigned char smem[];
   T* buf = reinterpret_cast<T*>(smem);
@@ -198,16 +201,16 @@ __global__ void __launch_bounds__(NT) ctta_norm_rows_kernel(
 #pragma unroll
     for (int k = 0; k < E; ++k) {
       const int j = lane + 32 * k;
-      v[k] = j < D ? to_f(row[j]) : 0.f;
+      v[k] = j < n ? to_f(row[j]) : 0.f;
       acc += v[k];
     }
     float mean = 0.f;
     if constexpr (!RMS) {
-      mean = warp_sum(acc) / D;
+      mean = warp_sum(acc) / n;
       acc = 0.f;
 #pragma unroll
       for (int k = 0; k < E; ++k) {
-        const float d = lane + 32 * k < D ? v[k] - mean : 0.f;
+        const float d = lane + 32 * k < n ? v[k] - mean : 0.f;
         acc += d * d;
       }
     } else {
@@ -215,13 +218,15 @@ __global__ void __launch_bounds__(NT) ctta_norm_rows_kernel(
 #pragma unroll
       for (int k = 0; k < E; ++k) acc += v[k] * v[k];
     }
-    const float rstd = rsqrtf(warp_sum(acc) / D + eps);
+    const float rstd = rsqrtf(warp_sum(acc) / n + eps);
 #pragma unroll
     for (int k = 0; k < E; ++k) {
       const int j = lane + 32 * k;
-      if (j < D) {
+      if (j < n) {
         const float scale = w ? rstd * __ldg(w + j) : rstd;
         row[j] = from_f<T>(fmaf(v[k] - mean, scale, b ? __ldg(b + j) : 0.f));
+      } else if (j < D) {
+        row[j] = from_f<T>(0.f);
       }
     }
   }
@@ -395,7 +400,7 @@ cudaError_t allow_smem() {
 
 template <typename T, bool RMS, int E>
 int launch_rows(const void* x, void* y, const void* w, const void* b, long long n_rows, int D,
-                int R, float eps, cudaStream_t stream) {
+                int n, int R, float eps, cudaStream_t stream) {
   constexpr auto kernel = ctta_norm_rows_kernel<T, RMS, E>;
   cudaError_t err = allow_smem<kernel>();
   if (err != cudaSuccess) return (int)err;
@@ -404,7 +409,7 @@ int launch_rows(const void* x, void* y, const void* w, const void* b, long long 
   const long long grid = (n_rows + R - 1) / R;
   kernel<<<(unsigned)grid, NT, smem, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y), static_cast<const float*>(w),
-      static_cast<const float*>(b), n_rows, D, R, eps);
+      static_cast<const float*>(b), n_rows, D, n, R, eps);
   return (int)cudaGetLastError();
 }
 
@@ -438,16 +443,16 @@ int launch_groups(const void* x, void* y, const void* w, const void* b, long lon
 
 template <typename T>
 int rows_dispatch(const void* x, void* y, const void* w, const void* b, int rms, long long n_rows,
-                  int D, int R, float eps, cudaStream_t s) {
+                  int D, int n, int R, float eps, cudaStream_t s) {
   const int e = (D + 31) / 32;
   if (rms) {
-    if (e <= 8) return launch_rows<T, true, 8>(x, y, w, b, n_rows, D, R, eps, s);
-    if (e <= 16) return launch_rows<T, true, 16>(x, y, w, b, n_rows, D, R, eps, s);
-    return launch_rows<T, true, 32>(x, y, w, b, n_rows, D, R, eps, s);
+    if (e <= 8) return launch_rows<T, true, 8>(x, y, w, b, n_rows, D, n, R, eps, s);
+    if (e <= 16) return launch_rows<T, true, 16>(x, y, w, b, n_rows, D, n, R, eps, s);
+    return launch_rows<T, true, 32>(x, y, w, b, n_rows, D, n, R, eps, s);
   }
-  if (e <= 8) return launch_rows<T, false, 8>(x, y, w, b, n_rows, D, R, eps, s);
-  if (e <= 16) return launch_rows<T, false, 16>(x, y, w, b, n_rows, D, R, eps, s);
-  return launch_rows<T, false, 32>(x, y, w, b, n_rows, D, R, eps, s);
+  if (e <= 8) return launch_rows<T, false, 8>(x, y, w, b, n_rows, D, n, R, eps, s);
+  if (e <= 16) return launch_rows<T, false, 16>(x, y, w, b, n_rows, D, n, R, eps, s);
+  return launch_rows<T, false, 32>(x, y, w, b, n_rows, D, n, R, eps, s);
 }
 
 template <typename T>
@@ -464,17 +469,20 @@ int groups_dispatch(const void* x, void* y, const void* w, const void* b, int si
 }  // namespace
 
 // x, y: [n_rows, D] contiguous, 16-byte aligned; dtype 0 bf16, 1 float32.
-// w, b: [D] float32 or null (no scale, no shift). 1 <= D <= 1024; R rows a
-// block. rms: y = x * rsqrt(mean(x^2) + eps) * w, else the LayerNorm.
+// Each row's first n features (1 <= n <= D <= 1024) are normalised; its
+// last D - n outputs are 0. w, b: [n] float32 or null (no scale, no
+// shift). R rows a block. rms: y = x * rsqrt(mean(x^2) + eps) * w, else
+// the LayerNorm.
 extern "C" int norm_rows_fwd(const void* x, void* y, const void* w, const void* b, int dtype,
-                             int rms, long long n_rows, int D, int R, float eps, void* stream) {
-  if (n_rows < 1 || D < 1 || D > 1024 || R < 1 || (uintptr_t)x % 16 || (uintptr_t)y % 16 ||
-      (n_rows + R - 1) / R > 0x7fffffffLL)
+                             int rms, long long n_rows, int D, int n, int R, float eps,
+                             void* stream) {
+  if (n_rows < 1 || D < 1 || D > 1024 || n < 1 || n > D || R < 1 || (uintptr_t)x % 16 ||
+      (uintptr_t)y % 16 || (n_rows + R - 1) / R > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return rows_dispatch<__nv_bfloat16>(x, y, w, b, rms, n_rows, D, R, eps, s);
-  if (dtype == 1) return rows_dispatch<float>(x, y, w, b, rms, n_rows, D, R, eps, s);
+    return rows_dispatch<__nv_bfloat16>(x, y, w, b, rms, n_rows, D, n, R, eps, s);
+  if (dtype == 1) return rows_dispatch<float>(x, y, w, b, rms, n_rows, D, n, R, eps, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -34,13 +34,18 @@ class GroupNorm(nn.GroupNorm):
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm over the last axis with float32 statistics and affine."""
+    """LayerNorm over the last axis with float32 statistics and affine. A
+    row padded past `normalized_shape` to the next multiple of 8 features
+    (the UNet transformer's zero-padded tokens) takes its statistics over
+    the true features, and its padding comes out 0; a row of any other
+    width is refused."""
 
     keep_fp32 = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with span("norm"):
-            return norm.layer_norm(x.contiguous(), self.weight, self.bias, self.eps)
+            return norm.layer_norm(x.contiguous(), self.weight, self.bias, self.eps,
+                                   self.normalized_shape[-1])
 
 
 def nearest_upsample_2d(x: torch.Tensor, scale: int = 2) -> torch.Tensor:

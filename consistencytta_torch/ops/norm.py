@@ -9,8 +9,13 @@ runs its plain version, the float32 code the modules ran before the kernel
 `csrc/norm.cu` and raises on anything else: GroupNorm on
 `ctta_norm_groups_kernel` (a cluster of blocks a group, `group_plan`),
 LayerNorm and RMSNorm on `ctta_norm_rows_kernel` (a warp a row,
-`rows_plan`; rows at most ROWS_MAX_WIDTH wide). A call with a gradient
-goes through `_Norm`, whose backward is autograd through the plain version.
+`rows_plan`; rows at most ROWS_MAX_WIDTH wide). `layer_norm` takes the
+count `n` of a row's true features: rows padded with zeros to the next
+multiple of 8 elements, 16 bytes of bf16 (the UNet transformer's 256 that
+hold 255), and no wider, are normalised over
+their first n features, with the affine's n entries, and their last
+width - n outputs are 0. A call with a gradient goes through `_Norm`, whose
+backward is autograd through the plain version.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch.nn.functional as F
 from consistencytta_torch.ops import _build
 
 ROWS_MAX_WIDTH = 1024  # widest row a warp holds in registers (32 elements a lane)
+PAD_ALIGN = 8  # elements: a padded row's width is its true features rounded up to this
 ROWS_SPAN_BYTES = 32 * 1024  # rows a block stages at most, in bytes
 CHUNK_BYTES = 32 * 1024  # a group's part a block takes, at most where the cluster allows
 MIN_CHUNK_BYTES = 8 * 1024  # no smaller part to fill the card at a small batch
@@ -37,6 +43,16 @@ LAUNCH_NAME = "ctta_norm_"  # in both kernels' names, and in no kernel of torch'
 
 # -- plain versions: float32 statistics and affine, one cast at the end --------
 
+def _features(n: Optional[int], width: int, what: str) -> int:
+    """n, where a row of `width` holds n true features: all of them, or n
+    padded to the next multiple of PAD_ALIGN; anything else is refused."""
+    if n is None:
+        return width
+    if not (n == width or 1 <= n < width == -(-n // PAD_ALIGN) * PAD_ALIGN):
+        raise ValueError(f"{what}: {n} true features in rows of {width}")
+    return n
+
+
 def group_norm_plain(x, groups: int, weight, bias, eps: float, silu: bool = False):
     """The SiLU is y * sigmoid(y), as the JAX package writes it."""
     y = F.group_norm(x.float(), groups, None if weight is None else weight.float(),
@@ -44,9 +60,15 @@ def group_norm_plain(x, groups: int, weight, bias, eps: float, silu: bool = Fals
     return (y * torch.sigmoid(y) if silu else y).to(x.dtype)
 
 
-def layer_norm_plain(x, weight, bias, eps: float):
-    return F.layer_norm(x.float(), x.shape[-1:], None if weight is None else weight.float(),
-                        None if bias is None else bias.float(), eps).to(x.dtype)
+def layer_norm_plain(x, weight, bias, eps: float, n: Optional[int] = None):
+    """Over the first `n` features of the last axis (all of them by
+    default), the rest of the output 0."""
+    width = x.shape[-1]
+    n = _features(n, width, "layer_norm")
+    x32 = x.float() if n == width else x[..., :n].float()
+    y = F.layer_norm(x32, (n,), None if weight is None else weight.float(),
+                     None if bias is None else bias.float(), eps)
+    return (y if n == width else F.pad(y, (0, width - n))).to(x.dtype)
 
 
 def rms_norm_plain(x, weight, eps: float):
@@ -148,7 +170,7 @@ def _groups_launch(x, y, w, b, silu, n_rows, row_len, groups, cpg, inner, eps):
     _build.check(code, "group_norm")
 
 
-def _rows_launch(x, y, w, b, rms, eps, what):
+def _rows_launch(x, y, w, b, rms, eps, what, n):
     width = x.shape[-1]
     n_rows = x.numel() // width
     if width > ROWS_MAX_WIDTH:
@@ -159,7 +181,7 @@ def _rows_launch(x, y, w, b, rms, eps, what):
     r = rows_plan(n_rows, width, x.element_size(), _sms(x.device.index))
     code = fn(_ptr(x), _ptr(y), _ptr(w), _ptr(b), ctypes.c_int(DTYPES[x.dtype]),
               ctypes.c_int(int(rms)), ctypes.c_longlong(n_rows), ctypes.c_int(width),
-              ctypes.c_int(r), ctypes.c_float(eps), _build.stream_ptr(x.device))
+              ctypes.c_int(n), ctypes.c_int(r), ctypes.c_float(eps), _build.stream_ptr(x.device))
     _build.check(code, what)
 
 
@@ -176,12 +198,12 @@ def _group_cuda(x, groups, weight, bias, eps, silu=False, out=None):
     return y
 
 
-def _layer_cuda(x, weight, bias, eps, out=None):
+def _layer_cuda(x, weight, bias, eps, n=None, out=None):
     x = _checked(x, "layer_norm")
-    d = x.shape[-1]
+    n = _features(n, x.shape[-1], "layer_norm")
     y = _output(x, out)
-    _rows_launch(x, y, _affine(weight, d, x, "layer_norm"), _affine(bias, d, x, "layer_norm"),
-                 False, eps, "layer_norm")
+    _rows_launch(x, y, _affine(weight, n, x, "layer_norm"), _affine(bias, n, x, "layer_norm"),
+                 False, eps, "layer_norm", n)
     layer_norm.launches += 1
     return y
 
@@ -189,7 +211,8 @@ def _layer_cuda(x, weight, bias, eps, out=None):
 def _rms_cuda(x, weight, eps, out=None):
     x = _checked(x, "rms_norm")
     y = _output(x, out)
-    _rows_launch(x, y, _affine(weight, x.shape[-1], x, "rms_norm"), None, True, eps, "rms_norm")
+    d = x.shape[-1]
+    _rows_launch(x, y, _affine(weight, d, x, "rms_norm"), None, True, eps, "rms_norm", d)
     rms_norm.launches += 1
     return y
 
@@ -242,13 +265,15 @@ def group_norm(x: torch.Tensor, groups: int, weight, bias, eps: float,
     return _group_cuda(x, groups, weight, bias, eps, silu)
 
 
-def layer_norm(x: torch.Tensor, weight, bias, eps: float) -> torch.Tensor:
-    """LayerNorm of x over its last axis."""
+def layer_norm(x: torch.Tensor, weight, bias, eps: float,
+               n: Optional[int] = None) -> torch.Tensor:
+    """LayerNorm of x over the first `n` features of its last axis (all
+    of them by default); the output's last width - n features are 0."""
     if not x.is_cuda:
-        return layer_norm_plain(x, weight, bias, eps)
+        return layer_norm_plain(x, weight, bias, eps, n)
     if _needs_grad(x, weight, bias):
-        return _Norm.apply(x, weight, bias, "layer", (eps,))
-    return _layer_cuda(x, weight, bias, eps)
+        return _Norm.apply(x, weight, bias, "layer", (eps, n))
+    return _layer_cuda(x, weight, bias, eps, n)
 
 
 def rms_norm(x: torch.Tensor, weight, eps: float) -> torch.Tensor:

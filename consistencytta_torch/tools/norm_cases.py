@@ -4,12 +4,14 @@ kernel tests, the CPU tests and `chip_smoke.py`'s kernel phase.
 `generate_norms` lists every GroupNorm (+ SiLU), LayerNorm and RMSNorm call
 of one generate call (the port's modules run on the meta device with
 forward pre-hooks on their norms) at the batches of the benchmark's cells
-(`CALLS`); `inputs` makes inputs whose groups and rows differ in scale and
-offset; `ulps` and `TOL_ULPS` hold the kernel to its plain float32 version
-in bf16 ulps of the output; `group_norm_fault` and `row_norm_fault` are the
-plain version with planted faults; `library_call` is torch's own norm and
-`bound_ms` the time of one bf16 read and one write of each element and the
-float32 affine at 3.35 TB/s. The device times are the smoke's.
+(`CALLS`), a LayerNorm's with the count `n` of its rows' true features
+(the UNet transformer pads its rows past them); `inputs` makes inputs whose
+groups and rows differ in scale and offset; `ulps` and `TOL_ULPS` hold the
+kernel to its plain float32 version in bf16 ulps of the output;
+`group_norm_fault` and `row_norm_fault` are the plain version with planted
+faults; `library_call` is torch's own norm and `bound_ms` the time of one
+bf16 read and one write of each element and the float32 affine at 3.35
+TB/s. The device times are the smoke's.
 
 The tolerance (`ulps`): the largest |kernel - plain| in bf16 ulps of the
 output, the ulp taken at the larger of the two values and at least at
@@ -115,12 +117,18 @@ def group_norm_fault(x, groups, w, b, eps, silu, fault: str):
     return y.to(x.dtype)
 
 
-def row_norm_fault(x, w, b, eps, rms: bool, fault: str):
-    """layer_norm_plain (rms False) or rms_norm_plain with one fault, as in
-    group_norm_fault; `neighbour_statistics` takes the next row's."""
-    x32 = x.float()
-    mean = torch.zeros_like(x32[..., :1]) if rms else x32.mean(-1, keepdim=True)
-    var = (x32 - mean).pow(2).mean(-1, keepdim=True)
+def row_norm_fault(x, w, b, eps, rms: bool, fault: str, n=None):
+    """layer_norm_plain (rms False, over the first `n` features) or
+    rms_norm_plain with one fault, as in group_norm_fault;
+    `neighbour_statistics` takes the next row's; `width_divisor` divides a
+    padded row's sums by its width in place of n."""
+    width = x.shape[-1]
+    n = width if n is None else n
+    x32 = x.float()[..., :n]
+    average = ((lambda t: t.sum(-1, keepdim=True) / width) if fault == "width_divisor"
+               else (lambda t: t.mean(-1, keepdim=True)))
+    mean = torch.zeros_like(x32[..., :1]) if rms else average(x32)
+    var = average((x32 - mean).pow(2))
     if fault == "one_pass_variance" and not rms:
         var = x32.pow(2).mean(-1, keepdim=True) - mean * mean
     if fault == "neighbour_statistics":
@@ -133,17 +141,19 @@ def row_norm_fault(x, w, b, eps, rms: bool, fault: str):
     y = y * w.float()
     if b is not None:
         y = y + b.float()
-    return y.to(x.dtype)
+    return F.pad(y, (0, width - n)).to(x.dtype)
 
 
 GROUP_FAULTS = ("eps_outside_sqrt", "neighbour_statistics", "one_pass_variance",
                 "silu_left_off")
 ROW_FAULTS = ("eps_outside_sqrt", "neighbour_statistics", "one_pass_variance")
+PAD_FAULT = "width_divisor"  # a fault only where a row is padded (n < width)
 
 
 # -- the norms a generate call sends ---------------------------------------------
 
-Call = Tuple[str, Tuple[int, ...], int, float, bool]  # kind, shape, groups, eps, silu
+# kind, shape, groups, eps, silu, and a LayerNorm's true features a row (0 for the others)
+Call = Tuple[str, Tuple[int, ...], int, float, bool, int]
 
 
 @lru_cache(maxsize=None)
@@ -164,7 +174,8 @@ def generate_norms(batch: int, text_len: int, unet_batch: int) -> Tuple[Call, ..
 
     def hook(m, args, kwargs):
         calls.append((kinds[type(m)], tuple(args[0].shape), getattr(m, "num_groups", 0), m.eps,
-                      bool(kwargs.get("silu", False))))
+                      bool(kwargs.get("silu", False)),
+                      m.normalized_shape[-1] if type(m) is LayerNorm else 0))
 
     meta = torch.device("meta")
     with meta:
@@ -190,29 +201,31 @@ def generate_norms(batch: int, text_len: int, unet_batch: int) -> Tuple[Call, ..
 CALLS = {"generate-b32": (32, 64, 32), "teacher-b8": (8, 64, 16), "generate-b1": (1, 40, 1)}
 
 
-def plain_call(kind, x, w, b, groups, eps, silu):
+def plain_call(kind, x, w, b, groups, eps, silu, n=0):
     if kind == "group":
         return norm.group_norm_plain(x, groups, w, b, eps, silu)
     if kind == "layer":
-        return norm.layer_norm_plain(x, w, b, eps)
+        return norm.layer_norm_plain(x, w, b, eps, n or None)
     return norm.rms_norm_plain(x, w, eps)
 
 
-def kernel_call(kind, x, w, b, groups, eps, silu):
+def kernel_call(kind, x, w, b, groups, eps, silu, n=0):
     if kind == "group":
         return norm.group_norm(x, groups, w, b, eps, silu)
     if kind == "layer":
-        return norm.layer_norm(x, w, b, eps)
+        return norm.layer_norm(x, w, b, eps, n or None)
     return norm.rms_norm(x, w, eps)
 
 
-def inputs(kind, shape, groups, dtype, gen):
+def inputs(kind, shape, groups, dtype, gen, n=0):
     """x, w, b for one call: x structured by channel group (GroupNorm) or by
-    row, a random affine (no shift for RMSNorm)."""
+    row, a random affine (no shift for RMSNorm) over the channels or the
+    row's first `n` features (all of them where n is 0). A padded row's
+    features from n on are not zero: the kernel must ignore them."""
     if kind == "group":
         parts, width = groups, shape[1]
     else:
-        parts, width = int(torch.tensor(shape[1:-1]).prod()), shape[-1]
+        parts, width = int(torch.tensor(shape[1:-1]).prod()), n or shape[-1]
     w, b = affine(width, gen, bias=kind != "rms")
     return structured(shape, dtype, gen, parts), w, b
 
@@ -223,13 +236,16 @@ def has_library(kind: str) -> bool:
     return kind != "rms" or hasattr(F, "rms_norm")
 
 
-def library_call(kind, x, w, b, groups, eps, silu):
+def library_call(kind, x, w, b, groups, eps, silu, n=0):
     """torch's own norm on x's dtype (float32 inside), then F.silu where
-    the kernel fuses it (`has_library(kind)` must hold)."""
+    the kernel fuses it (`has_library(kind)` must hold); a padded row's
+    LayerNorm over its first n features, then the zeros after them."""
     if kind == "group":
         y = F.group_norm(x, groups, w.to(x.dtype), b.to(x.dtype), eps)
     elif kind == "layer":
-        y = F.layer_norm(x, x.shape[-1:], w.to(x.dtype), b.to(x.dtype), eps)
+        n = n or x.shape[-1]
+        y = F.pad(F.layer_norm(x[..., :n], (n,), w.to(x.dtype), b.to(x.dtype), eps),
+                  (0, x.shape[-1] - n))
     else:
         y = F.rms_norm(x, x.shape[-1:], w.to(x.dtype), eps)
     return F.silu(y) if silu else y

@@ -550,14 +550,14 @@ NORM_DTYPES = (torch.bfloat16, torch.float32)
 NORM_COUNTERS = {"group": norm.group_norm, "layer": norm.layer_norm, "rms": norm.rms_norm}
 
 
-def _norm_check(kind, shape, groups, eps, silu, dtype, gen):
-    x, w, b = nc.inputs(kind, shape, groups, dtype, gen)
+def _norm_check(kind, shape, groups, eps, silu, dtype, gen, n=0):
+    x, w, b = nc.inputs(kind, shape, groups, dtype, gen, n)
     counter = NORM_COUNTERS[kind]
     before = counter.launches
-    got = nc.kernel_call(kind, x, w, b, groups, eps, silu)
+    got = nc.kernel_call(kind, x, w, b, groups, eps, silu, n)
     torch.cuda.synchronize()
     assert counter.launches == before + 1 and got.dtype == dtype and got.shape == x.shape
-    want = nc.plain_call(kind, x, w, b, groups, eps, silu)
+    want = nc.plain_call(kind, x, w, b, groups, eps, silu, n)
     err = nc.ulps(got, want)
     assert err <= nc.TOL_ULPS[dtype], (kind, shape, silu, dtype, err)
     return x, w, b, got, want
@@ -566,10 +566,11 @@ def _norm_check(kind, shape, groups, eps, silu, dtype, gen):
 @pytest.mark.parametrize("dtype", NORM_DTYPES)
 @pytest.mark.parametrize("calls", sorted(nc.CALLS))
 def test_norm_at_every_shape_the_cells_send(gen, calls, dtype):
-    """Every distinct GroupNorm (with and without its SiLU), LayerNorm and
-    RMSNorm call of one generate call of the cell, at its batch."""
-    for kind, shape, groups, eps, silu in sorted(set(nc.generate_norms(*nc.CALLS[calls]))):
-        _norm_check(kind, shape, groups, eps, silu, dtype, gen)
+    """Every distinct GroupNorm (with and without its SiLU), LayerNorm (over
+    the transformer's padded rows) and RMSNorm call of one generate call of
+    the cell, at its batch."""
+    for kind, shape, groups, eps, silu, n in sorted(set(nc.generate_norms(*nc.CALLS[calls]))):
+        _norm_check(kind, shape, groups, eps, silu, dtype, gen, n)
         torch.cuda.empty_cache()
 
 
@@ -609,6 +610,22 @@ def test_norm_tolerance_rejects_planted_faults(gen, kind, shape, groups, silu, e
         else:
             bad = nc.row_norm_fault(x, w, b, eps, kind == "rms", fault)
         assert not nc.close(bad, want), fault
+
+
+@pytest.mark.parametrize("n,width", [(255, 256), (510, 512), (1020, 1024)])
+@pytest.mark.parametrize("dtype", NORM_DTYPES)
+def test_layer_norm_of_padded_rows(gen, n, width, dtype):
+    """The UNet transformer's rows: the statistics over the first n
+    features, zeros after them whatever x held there, every true feature the
+    kernel's output on the unpadded rows bit for bit; the statistics divided
+    by the width fail the tolerance (on zero pads, as on the path)."""
+    x, w, b, got, want = _norm_check("layer", (2, 1000, width), 0, 1e-5, False, dtype, gen, n)
+    assert (x[..., n:] != 0).any() and (got[..., n:] == 0).all()
+    assert torch.equal(got[..., :n], norm.layer_norm(x[..., :n].contiguous(), w, b, 1e-5))
+    x[..., n:] = 0
+    want = norm.layer_norm_plain(x, w, b, 1e-5, n)
+    assert nc.close(norm.layer_norm(x, w, b, 1e-5, n), want)
+    assert not nc.close(nc.row_norm_fault(x, w, b, 1e-5, False, nc.PAD_FAULT, n), want)
 
 
 @pytest.mark.parametrize("kind,shape,groups", [("group", (2, 96, 33, 7), 32),
@@ -723,4 +740,7 @@ def test_norm_refuses_what_it_does_not_take(gen):
         norm.layer_norm(wide, torch.ones(1500, device="cuda"), None, 1e-5)
     with pytest.raises(ValueError, match="a warp holds"):
         norm.rms_norm(wide[..., :1025].contiguous(), torch.ones(1025, device="cuda"), 1e-6)
+    # more true features than the row holds
+    with pytest.raises(ValueError, match="true features"):
+        norm.layer_norm(x, torch.ones(11, device="cuda"), None, 1e-5, 11)
     assert {k: f.launches for k, f in NORM_COUNTERS.items()} == before

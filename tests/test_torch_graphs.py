@@ -13,8 +13,10 @@ at batch 32; a returned waveform outlives the next call; forward hooks fire
 around a replay and their events bracket its kernels; a replay reads the
 vocoder's weight packs after they left their cache, and weights loaded in
 place; the graph and launch counters read what the calls imply, and every
-norm of a call launches the norm kernel. The file
-imports nothing of JAX:
+norm of a call launches the norm kernel; a UNet graph holds the transformer's
+padded weights that the eager warm-up made, and a traced UNet query
+launches none of cuBLAS's unaligned GEMM fallbacks, which one GEMM on the
+transformer's unpadded width does. The file imports nothing of JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_graphs.py -q
 """
@@ -373,3 +375,54 @@ def test_every_norm_of_a_call_launches_the_norm_kernel(card):
             with ctx:
                 _generate(card, text, i)
         assert [f.launches - n for f, n in zip(counters, start)] == [85, 48, 49]
+
+
+@pytest.mark.cuda
+def test_unet_graph_holds_the_padded_weights_made_before_its_capture(card):
+    """The transformer's zero-padded weights (nn/attention.py), 6 copies a
+    transformer, are the cache's own: made eagerly before the capture, so a
+    replay makes none of them."""
+    from consistencytta_torch.nn import attention
+
+    module, args = _stage_calls(card, 1, 13)["unet"]  # a shape no other test calls
+    with torch.no_grad():
+        module(*args)
+    rec = graphs._STATES[module].graphs[graphs._call_key(args)]
+    held = [id(p.pack) for p in rec.packs]
+    assert len(held) == 6 * 16
+    assert set(held) <= {id(v[1]) for v in attention._PACKS.values()}
+
+
+@pytest.mark.cuda
+def test_unet_query_takes_no_unaligned_gemm(card, tmp_path):
+    """A traced UNet query at batch 2 and text length 64 launches no kernel
+    of cuBLAS's unaligned fallbacks (`profile_stages.UNALIGNED_GEMM`), where
+    one bf16 GEMM on 255-wide rows, the transformer's width before its
+    padding, launches them; the query's bf16 output lies within 2.5% (relative
+    L2) of a float32 run on the CPU: bf16 rounding through the whole UNet
+    reads 1.16% on an H100, so this catches gross faults; the transformer's
+    small ones are the CPU tests' (tests/test_torch_transformer_pad.py)."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from consistencytta_torch.tools import profile_stages
+
+    def unaligned(name, fn):
+        with torch.no_grad(), graphs.eager():
+            fn()
+            with utils.profile_trace(str(tmp_path / name)) as path:
+                out = fn()
+        return out, profile_stages.kernel_share(utils.read_trace(path, top=None))["unaligned_gemm"]
+
+    x, w = (torch.randn(shape, device="cuda", dtype=torch.bfloat16)
+            for shape in ((4096, 255), (255, 255)))
+    _, fallback = unaligned("linear", lambda: F.linear(x, w))
+    assert fallback["launches"] > 0, fallback
+    module, args = _stage_calls(card, 2, 64)["unet"]
+    got, query = unaligned("unet", lambda: module(*args))
+    assert query == {"ms": 0, "launches": 0}, query
+    with torch.no_grad():
+        ref = copy.deepcopy(module).float().cpu()(*(a.cpu() for a in args))
+    dist = ((got.cpu().float() - ref).norm() / ref.norm()).item()
+    assert dist <= 0.025, dist

@@ -151,7 +151,7 @@ def test_pack_cache_repacks_after_in_place_update():
     live_w = [torch.ones(32, 32, k) for k in KS for _ in range(6)]
     live_b = [torch.ones(32) for _ in range(18)]
     mrf.packed_weights(live_w, live_b, KS)
-    assert all(r() is not None for refs, _ in mrf._PACKS.values() for r in refs)
+    assert all(r() is not None for refs, *_ in mrf._PACKS.values() for r in refs)
 
 
 def test_hifigan_generator_matches_jax():

@@ -1,9 +1,10 @@
 """The norm wrapper (ops/norm.py) on the CPU: its plain route is the
 float32 code the modules ran before the kernel, bit for bit; the fused
-SiLU is the SiLU of the float32 norm; the autograd.Function's gradient is
-autograd through the plain version; the launch plans cover every row; and
-the card tests' tolerance (tools/norm_cases.py) rejects each planted fault
-on their inputs.
+SiLU is the SiLU of the float32 norm; a LayerNorm over a padded row's first
+n features is torch's over those features with zeros after them; the
+autograd.Function's gradient is autograd through the plain version; the
+launch plans cover every row; and the card tests' tolerance
+(tools/norm_cases.py) rejects each planted fault on their inputs.
 The kernel itself runs only on the card (tests/test_torch_cuda_kernels.py)."""
 
 import pytest
@@ -185,4 +186,89 @@ def test_a_generate_call_sends_the_counted_norms():
     elements = sum(torch.Size(c[1]).numel() for c in calls)
     assert elements == pytest.approx(5.97e9, rel=1e-3)
     assert len(set(calls)) == 29
-    assert sorted({c[1][-1] for c in calls if c[0] == "layer"}) == [255, 510, 1020]
+    # the transformer's rows are zero-padded to 16-byte multiples (nn/attention.py)
+    assert sorted({c[1][-1] for c in calls if c[0] == "layer"}) == [256, 512, 1024]
+    assert sorted({c[5] for c in calls if c[0] == "layer"}) == [255, 510, 1020]
+    assert {c[5] for c in calls if c[0] != "layer"} == {0}
+
+
+PADDED_ROWS = [(255, 256), (510, 512), (1020, 1024)]  # the UNet transformer's rows
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,width", PADDED_ROWS)
+def test_layer_norm_over_the_true_features_of_a_padded_row(n, width, dtype):
+    """torch's LayerNorm over the first n features, then zeros, whatever
+    the pads held; the module takes n from its affine's length."""
+    gen = torch.Generator().manual_seed(n)
+    x, w, b = common.inputs("layer", (2, 9, width), 0, dtype, gen, n)
+    assert (x[..., n:] != 0).any()
+    want = F.layer_norm(x[..., :n].float(), (n,), w, b, 1e-5).to(dtype)
+    got = norm.layer_norm(x, w, b, 1e-5, n)
+    assert got.shape == x.shape and torch.equal(got[..., :n], want)
+    assert (got[..., n:] == 0).all()
+    m = LayerNorm(n)
+    with torch.no_grad():
+        m.weight.copy_(w)
+        m.bias.copy_(b)
+        assert torch.equal(m(x), got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("width", [255, 256, 1024])
+def test_layer_norm_of_a_whole_row_is_unchanged(width, dtype):
+    """n == width is the code before the count, bit for bit."""
+    gen = torch.Generator().manual_seed(width)
+    x, w, b = common.inputs("layer", (3, 7, width), 0, dtype, gen)
+    before = F.layer_norm(x.float(), x.shape[-1:], w, b, 1e-5).to(dtype)
+    assert torch.equal(norm.layer_norm(x, w, b, 1e-5, width), before)
+    assert torch.equal(norm.layer_norm(x, w, b, 1e-5), before)
+
+
+@pytest.mark.parametrize("n,width", PADDED_ROWS)
+def test_tolerance_rejects_statistics_over_the_width(n, width):
+    """The statistics divided by the padded width in place of n fail the
+    card tests' tolerance on rows whose pads are zero, as on the path."""
+    gen = torch.Generator().manual_seed(6)
+    x, w, b = common.inputs("layer", (2, 64, width), 0, torch.bfloat16, gen, n)
+    x[..., n:] = 0
+    want = norm.layer_norm_plain(x, w, b, 1e-5, n)
+    assert common.close(common.row_norm_fault(x, w, b, 1e-5, False, "none", n), want)
+    assert not common.close(common.row_norm_fault(x, w, b, 1e-5, False, common.PAD_FAULT, n),
+                            want)
+
+
+@pytest.mark.parametrize("n", [0, 257, 248, 200])
+def test_layer_norm_refuses_a_count_outside_the_row(n):
+    """A count past the row, or one whose padding to a multiple of 8 is not
+    the row's width (a row of the wrong width handed by mistake)."""
+    x = torch.randn(2, 3, 256)
+    w = torch.ones(max(n, 1))
+    with pytest.raises(ValueError, match="true features"):
+        norm.layer_norm(x, w, None, 1e-5, n)
+    if n:
+        with pytest.raises(ValueError, match="true features"):
+            LayerNorm(n)(x)
+
+
+@pytest.mark.parametrize("needs", ["x", "params", "all"])
+def test_padded_row_gradient_is_autograd_through_the_plain_version(needs):
+    """The student's LayerNorms: the gradient of the first n features, and
+    none into the pads."""
+    gen = torch.Generator().manual_seed(7)
+    x0, w0, b0 = common.inputs("layer", (2, 5, 256), 0, torch.float32, gen, 255)
+    g = torch.randn(2, 5, 256, generator=gen)
+    x = x0.clone().requires_grad_(needs != "params")
+    w, b = (t.clone().requires_grad_(needs != "x") for t in (w0, b0))
+    out = norm._Norm.apply(x, w, b, "layer", (1e-5, 255))
+    leaves = [t for t in (x, w, b) if t.requires_grad]
+    got = torch.autograd.grad(out, leaves, g)
+    xs = x0[..., :255].clone().requires_grad_(needs != "params")
+    ws, bs = (t.clone().requires_grad_(needs != "x") for t in (w0, b0))
+    want = torch.autograd.grad(F.layer_norm(xs, (255,), ws, bs, 1e-5),
+                               [t for t in (xs, ws, bs) if t.requires_grad], g[..., :255])
+    skip = int(x.requires_grad)
+    if skip:
+        assert torch.equal(got[0][..., :255], want[0]) and (got[0][..., 255:] == 0).all()
+    for a, e in zip(got[skip:], want[skip:]):
+        assert torch.equal(a, e)
