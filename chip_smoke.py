@@ -1844,6 +1844,7 @@ def main() -> None:
         from consistencytta_torch.ops import attention as att
         from consistencytta_torch.ops import dilated_conv as dconv
         from consistencytta_torch.ops import mrf, norm, schedulers, stft
+        from consistencytta_torch.ops._packs import Pack
         from consistencytta_torch.text.tokenizer import HashTokenizer, tokenize_with_uncond
         from consistencytta_torch.training import step as tstep
         from consistencytta_torch.training.optim import OptimizerConfig
@@ -2124,7 +2125,8 @@ def main() -> None:
         ws = [(torch.randn(c, c, kk, device=dev, generator=gen) / (c * kk) ** 0.5).bfloat16()
               for kk in ks for _ in range(6)]
         bs = [(torch.randn(c, device=dev, generator=gen) * 0.05).bfloat16() for _ in range(18)]
-        kern = lambda: mrf.fused_mrf_level(x, ws, bs, ks, ds, 0.1)
+        pack = Pack()  # the kernel's weight layout, made once as the vocoder keeps it
+        kern = lambda: mrf.fused_mrf_level(x, ws, bs, ks, ds, 0.1, pack)
         direct = lambda: mrf.mrf_level_plain(x, ws, bs, ks, ds, 0.1)
         split = lambda: mrf.mrf_level_plain(x, ws, bs, ks, ds, 0.1, phase_split=True)
         got, want = launch(mrf.fused_mrf_level, kern), direct()
@@ -2284,7 +2286,8 @@ def main() -> None:
     for kk, d in ((3, 3), (3, 5), (7, 3), (7, 5), (11, 3), (11, 5)):
         w = (torch.randn(c, c, kk, device=dev, generator=gen) / (c * kk) ** 0.5).bfloat16()
         p = d * (kk - 1) // 2
-        kern = lambda: dconv.dilated_conv1d(x, w, d, p)
+        pack = Pack()
+        kern = lambda: dconv.dilated_conv1d(x, w, d, p, pack)
         plain = lambda: dconv.dilated_conv1d_plain(x, w, d, p)
         got, want = launch(dconv.dilated_conv1d, kern), plain()
         one_less = w.clone()

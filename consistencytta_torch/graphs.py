@@ -8,26 +8,28 @@ eagerly, as does every call inside `eager()`. A call is a frozen inference
 call when `refusals` finds nothing against it: its tensors are on CUDA, grad
 mode is off, no autocast is active, no parameter of the module requires
 grad, every argument is a tensor or None (a Python number would be baked
-into the graph), and no capture is under way already.
+into the graph), no capture is under way already, and the module's weights
+have not changed in place since its last call (below).
 
 The key (`key`) is the data pointers of the module's parameters and buffers,
 each argument's shape, strides, dtype and device, and whether inference mode
 is on. The first call with a new key copies its arguments into static
 inputs, captures the forward on a side stream into the module's memory pool,
-and replays the graph. A module's first capture follows one eager warm-up
-call on that stream, for the lazy set-up of cuBLAS, cuDNN and the kernels'
-libraries. Later calls copy their arguments into the static inputs and
-replay. The outputs are cloned before they are returned, so a later replay
-never overwrites a caller's tensor; that, and one graph replayed at a time on
-the caller's stream, is what lets a module's graphs share one pool.
+and replays the graph. A module's first capture, and its first after its
+weights are replaced, follows one eager warm-up call on that stream, for
+the lazy set-up of cuBLAS, cuDNN and the kernels' libraries and of the
+module's own weight copies. Later calls copy their arguments into the
+static inputs and replay. The outputs are cloned before they are returned,
+so a later replay never overwrites a caller's tensor; that, and one graph
+replayed at a time on the caller's stream, is what lets a module's graphs
+share one pool.
 
-Weights: parameters replaced by new tensors change the key, and the module's
-graphs are dropped and captured anew. An in-place update (a load_state_dict
-into the same tensors, an EMA step) keeps the key, and the next replay reads
-the new values. The weight packs a kernel reads in a layout of its own
-(`ops/_packs.py`) are held by each graph that reads them, so an eviction
-from their cache frees nothing a graph reads; a pack whose weights changed in
-place is made anew into the same memory before the replay.
+Weights: parameters replaced by new tensors change the key, and the
+module's graphs are dropped and captured anew. An in-place update (a
+load_state_dict into the same tensors, an EMA step) keeps the key and moves
+the weights' version counters: the module's next call runs eagerly
+("updated" in `refusals`) and records the new versions, and later calls
+replay the graphs, which read the new values.
 
 Counting: `utils.graph_counts` has the captures, replays and eager calls per
 stage. The kernels' Python launch counters (`flash_mha_packed.launches` and
@@ -38,6 +40,7 @@ leave them as they were, and each replay adds what the capture launched.
 from __future__ import annotations
 
 import contextlib
+import operator
 import weakref
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -47,7 +50,7 @@ from torch import nn
 from consistencytta_torch.utils import count_graph
 
 _eager_depth = 0  # open eager() contexts
-_recording: Optional["_Graph"] = None  # the graph being captured, if any
+_VERSION, _GRAD = operator.attrgetter("_version"), operator.attrgetter("requires_grad")
 _counters: Optional[tuple] = None  # the kernels' launch-counting functions
 _side_streams: Dict[torch.device, torch.cuda.Stream] = {}
 
@@ -76,36 +79,14 @@ def eager() -> Iterator[None]:
         _eager_depth -= 1
 
 
-class _Pack:
-    """A weight pack a graph reads: the tensors it was made from, their
-    in-place versions when the graph last read it, and how to make it."""
-
-    __slots__ = ("tensors", "versions", "pack", "make")
-
-    def __init__(self, tensors, pack, make):
-        self.tensors, self.pack, self.make = tuple(tensors), pack, make
-        self.versions = [t._version for t in self.tensors]
-
-    def refresh(self) -> None:
-        versions = [t._version for t in self.tensors]
-        if versions != self.versions:
-            for dst, src in zip(_flat(self.pack), _flat(self.make())):
-                dst.copy_(src)
-            self.versions = versions
-
-
 class _Graph:
-    __slots__ = ("graph", "inputs", "outputs", "launches", "packs")
+    __slots__ = ("graph", "inputs", "outputs", "launches")
 
     def __init__(self, inputs):
         self.graph = torch.cuda.CUDAGraph()
         self.inputs = inputs
         self.outputs = None
         self.launches: List[int] = []
-        self.packs: List[_Pack] = []
-
-    def keep(self, tensors, pack, make) -> None:
-        self.packs.append(_Pack(tensors, pack, make))
 
 
 class _State:
@@ -115,6 +96,7 @@ class _State:
     def __init__(self):
         self.graphs: Dict[tuple, _Graph] = {}
         self.weights: Optional[tuple] = None
+        self.versions: Optional[tuple] = None
         self.pool = None
         self.warm = False
         self.dicts: list = []  # the _parameters and _buffers dicts of its modules
@@ -131,19 +113,14 @@ def _state(module: nn.Module) -> _State:
     return state
 
 
-def _weights(module: nn.Module, state: _State) -> Tuple[tuple, bool]:
-    """(data pointers of the module's parameters and buffers, whether a
-    parameter requires grad)."""
+def _weights(module: nn.Module, state: _State) -> Tuple[tuple, tuple, bool]:
+    """(data pointers of the module's parameters and buffers, their version
+    counters, whether a parameter requires grad)."""
     if state.structure != _structure:
         state.dicts = [d for m in module.modules() for d in (m._parameters, m._buffers) if d]
         state.structure = _structure
-    ptrs, trainable = [], False
-    for d in state.dicts:
-        for t in d.values():
-            if t is not None:
-                ptrs.append(t.data_ptr())
-                trainable = trainable or t.requires_grad
-    return tuple(ptrs), trainable
+    ts = [t for d in state.dicts for t in d.values() if t is not None]
+    return tuple(map(torch.Tensor.data_ptr, ts)), tuple(map(_VERSION, ts)), any(map(_GRAD, ts))
 
 
 def _autocast() -> bool:
@@ -170,10 +147,15 @@ def _call_refusals(args) -> Iterator[str]:
 def refusals(module: nn.Module, *args) -> Tuple[str, ...]:
     """Why a call of `module` on `args` runs eagerly: the names of every
     condition it fails ("eager", "scalar", "cpu", "capturing", "grad",
-    "autocast", "trainable"); () for a call that replays a graph."""
+    "autocast", "trainable", "updated": weights changed in place since the
+    module's last call); () for a call that replays a graph."""
     out = list(_call_refusals(args))
-    if _weights(module, _state(module))[1]:
+    state = _state(module)
+    weights, versions, trainable = _weights(module, state)
+    if trainable:
         out.append("trainable")
+    elif weights == state.weights and versions != state.versions:
+        out.append("updated")
     return tuple(out)
 
 
@@ -189,17 +171,6 @@ def key(module: nn.Module, *args) -> tuple:
     """The key of a call's graph: the module's weight pointers and
     `_call_key`."""
     return _weights(module, _state(module))[0], *_call_key(args)
-
-
-def recording() -> Optional[_Graph]:
-    """The graph being captured, while `run` captures one; else None. A
-    weight pack found in its cache during a capture is handed to it
-    (`_Graph.keep`)."""
-    return _recording
-
-
-def _flat(out) -> list:
-    return [out] if isinstance(out, torch.Tensor) else list(out)
 
 
 def _clone(out):
@@ -230,7 +201,6 @@ def _capture(state: _State, fn: Callable, args) -> _Graph:
     """Capture fn on static copies of `args` (after the module's one
     warm-up, if it has had none) and leave the launch counters as they
     were."""
-    global _recording
     dev = next(a.device for a in args if a is not None)
     counters = _launch_counters()
     start = [f.launches for f in counters]
@@ -244,12 +214,10 @@ def _capture(state: _State, fn: Callable, args) -> _Graph:
             fn(*rec.inputs)
             state.warm = True
         before = [f.launches for f in counters]
-        _recording = rec
         rec.graph.capture_begin(pool=state.pool, capture_error_mode="thread_local")
         try:
             rec.outputs = fn(*rec.inputs)
         finally:
-            _recording = None
             rec.graph.capture_end()
     current.wait_stream(side)
     rec.launches = [f.launches - n for f, n in zip(counters, before)]
@@ -262,16 +230,18 @@ def run(module: nn.Module, stage: str, fn: Callable, *args):
     """fn(*args), the eager forward of `module`: as a graph's replay where
     the call is a frozen inference call, else eagerly. `stage` names the
     module's stage in `utils.graph_counts`."""
-    if next(_call_refusals(args), None) is not None:
-        count_graph(stage, "eager")
-        return fn(*args)
     state = _state(module)
-    weights, trainable = _weights(module, state)
-    if trainable:
+    weights, versions, trainable = _weights(module, state)
+    updated = False
+    if not trainable:  # a frozen forward, eager or replayed, reads these versions
+        if weights != state.weights:
+            state.graphs, state.weights, state.pool, state.warm = {}, weights, None, False
+        else:
+            updated = versions != state.versions
+        state.versions = versions
+    if trainable or updated or next(_call_refusals(args), None) is not None:
         count_graph(stage, "eager")
         return fn(*args)
-    if weights != state.weights:
-        state.graphs, state.weights, state.pool = {}, weights, None
     k = _call_key(args)
     rec = state.graphs.get(k)
     if rec is None:
@@ -282,8 +252,6 @@ def run(module: nn.Module, stage: str, fn: Callable, *args):
             if dst is not None:
                 dst.copy_(a)
         count_graph(stage, "replays")
-    for pack in rec.packs:
-        pack.refresh()
     rec.graph.replay()
     for f, n in zip(_launch_counters(), rec.launches):
         f.launches += n

@@ -32,18 +32,14 @@ one plus exact zeros. The padding follows what a module observes, the token
 width it is handed and its head width: where the inner dim and the head
 width are multiples of 8 elements already (the tiny configurations,
 tango-full's 320/640/1280 at head width 64) nothing is padded but K1's
-heads, and the modules run the unpadded formulation. Calls on frozen
-weights, none of which requires grad, take the padded copies from a cache that makes
-them once per weight version (`ops._packs.cached_pack`; the eager warm-up
-before a CUDA graph's capture makes them, and the graph holds them); a call
-on trainable weights, with or without grad mode, pads them with F.pad at
-every call, so the gradient reaches the published-shape parameters and an
-optimizer's in-place step is always read.
+heads, and the modules run the unpadded formulation. The padded copies are
+held by the module whose weights they are (`Transformer2D`: proj_in and
+proj_out; `Attention`, `GEGLU`, `FeedForward`: net.2), in an
+`ops._packs.Pack`, which says when a copy is made anew.
 """
 
 from __future__ import annotations
 
-from collections import OrderedDict
 from typing import Optional
 
 import torch
@@ -51,14 +47,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from consistencytta_torch.nn.layers import GroupNorm, LayerNorm
-from consistencytta_torch.ops._packs import cached_pack
+from consistencytta_torch.ops._packs import Pack
 from consistencytta_torch.ops.attention import flash_mha_packed, head_pad
 # ALIGN elements are 16 bytes of bf16, the row alignment cuBLAS's Hopper GEMMs
 # take; the LayerNorms take rows padded to it
 from consistencytta_torch.ops.norm import PAD_ALIGN as ALIGN
 from consistencytta_torch.utils import span
-
-PACK_CACHE_SIZE = 512  # padded copies kept: 6 a padded Transformer2D, 96 a UNet
 
 
 def aligned(n: int) -> int:
@@ -88,31 +82,14 @@ def _pad_heads(w: torch.Tensor, heads: int, width: int, to: int, dim: int) -> to
     return F.pad(w.reshape(-1, heads, width), (0, to - width)).reshape(-1, heads * to)
 
 
-_PACKS: "OrderedDict[tuple, tuple]" = OrderedDict()
-
-
-def _padded(tensors, key, make):
-    """make(), the zero-padded copies of `tensors`: made anew at every call
-    where any of them is trainable (requires grad), in or out of grad mode,
-    since an optimizer may change it in place without moving its version
-    (the fused AdamW); else once per weight version (detached, so that a
-    pack that passes a tensor through keeps its storage and not the
-    parameter, which the cache holds only weakly). So the cache serves the
-    frozen roles alone, as the CUDA graphs do (`graphs.refusals`)."""
-    if any(t.requires_grad for t in tensors):
-        return make()
-    return cached_pack(_PACKS, PACK_CACHE_SIZE, tensors, key,
-                       lambda: tuple(t.detach() for t in make()))
-
-
-def padded_linear(lin: nn.Linear, rows: int, cols: int):
+def padded_linear(lin: nn.Linear, rows: int, cols: int, pack: Pack):
     """(weight, bias) of `lin` with zero output rows and bias up to `rows`
-    and zero input columns up to `cols`; its own where no padding is
-    needed."""
+    and zero input columns up to `cols`, kept in `pack`; its own where no
+    padding is needed."""
     w, b = lin.weight, lin.bias
     if tuple(w.shape) == (rows, cols):
         return w, b
-    return _padded((w, b), ("linear", rows, cols), lambda: (_pad(w, rows, cols), _pad(b, rows)))
+    return pack.get((w, b), lambda: (_pad(w, rows, cols), _pad(b, rows)))
 
 
 class Attention(nn.Module):
@@ -131,6 +108,7 @@ class Attention(nn.Module):
         self.to_k = nn.Linear(kv_dim, inner, bias=False)
         self.to_v = nn.Linear(kv_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+        self.pack = Pack()
 
     def _weights(self, width: int, pad_to: int, fused: bool):
         """(QKV weight(s), to_out weight, to_out bias, head width) for tokens
@@ -149,7 +127,7 @@ class Attention(nn.Module):
                 _pad(heads[0], cols=width), *heads[1:])
             return (*qkv, _pad(_pad_heads(wo, h, hd, pad_to, 1), rows=width), _pad(bo, width))
 
-        *qkv, w_out, b_out = _padded((q, k, v, wo, bo), (fused, width), make)
+        *qkv, w_out, b_out = self.pack.get((q, k, v, wo, bo), make)
         return tuple(qkv), w_out, b_out, pad_to
 
     def _self_attention(self, x: torch.Tensor) -> torch.Tensor:
@@ -189,6 +167,7 @@ class GEGLU(nn.Module):
     def __init__(self, dim: int, dim_out: int):
         super().__init__()
         self.proj = nn.Linear(dim, dim_out * 2)
+        self.pack = Pack()
 
     def _weights(self, width: int):
         """`proj`'s weight and bias, each half (h, gate) padded like a head."""
@@ -197,7 +176,7 @@ class GEGLU(nn.Module):
         out = aligned(half)
         if (out, width) == (half, w.shape[1]):
             return w, b
-        return _padded((w, b), ("geglu", width), lambda: (
+        return self.pack.get((w, b), lambda: (
             _pad(_pad_heads(w, 2, half, out, 0), cols=width),
             _pad_heads(b[None], 2, half, out, 1)[0]))
 
@@ -214,10 +193,11 @@ class FeedForward(nn.Module):
         self.net = nn.ModuleList(
             [GEGLU(dim, dim * mult), nn.Identity(), nn.Linear(dim * mult, dim)]
         )
+        self.pack = Pack()  # net.2's
 
     def forward(self, x):
         h = self.net[0](x)
-        return F.linear(h, *padded_linear(self.net[2], x.shape[-1], h.shape[-1]))
+        return F.linear(h, *padded_linear(self.net[2], x.shape[-1], h.shape[-1], self.pack))
 
 
 class BasicTransformerBlock(nn.Module):
@@ -257,13 +237,14 @@ class Transformer2D(nn.Module):
              for _ in range(num_layers)]
         )
         self.proj_out = nn.Linear(inner, channels)
+        self.proj_in_pack, self.proj_out_pack = Pack(), Pack()
 
     def forward(self, x, encoder_hidden_states, encoder_mask_bias):
         b, c, h, w = x.shape
         tokens = self.norm(x).flatten(2).transpose(1, 2)  # [B, H*W, C]
         width = aligned(self.proj_in.out_features)
-        tokens = F.linear(tokens, *padded_linear(self.proj_in, width, c))
+        tokens = F.linear(tokens, *padded_linear(self.proj_in, width, c, self.proj_in_pack))
         for blk in self.transformer_blocks:
             tokens = blk(tokens, encoder_hidden_states, encoder_mask_bias)
-        tokens = F.linear(tokens, *padded_linear(self.proj_out, c, width))
+        tokens = F.linear(tokens, *padded_linear(self.proj_out, c, width, self.proj_out_pack))
         return tokens.transpose(1, 2).reshape(b, c, h, w) + x

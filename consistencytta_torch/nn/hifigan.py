@@ -18,6 +18,7 @@ from torch import nn
 
 from consistencytta_torch import graphs
 from consistencytta_torch.configs import HiFiGANConfig
+from consistencytta_torch.ops._packs import Pack
 from consistencytta_torch.ops.mrf import fused_mrf_level, mrf_level_plain
 from consistencytta_torch.utils import span
 
@@ -69,6 +70,7 @@ class HiFiGANGenerator(nn.Module):
             for rk, rd in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
                 self.resblocks.append(ResBlock(ch, rk, rd))
         self.conv_post = nn.Conv1d(c0 // (2 ** len(cfg.upsample_rates)), 1, 7, padding=3)
+        self.level_packs = [Pack() for _ in self.ups]  # K3's weight layout, a level
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         return graphs.run(self, "vocoder", self._forward, mel)
@@ -89,7 +91,7 @@ class HiFiGANGenerator(nn.Module):
                 bs += b
             with span("mrf"):
                 if x.shape[1] <= FUSE_MAX_CHANNELS:
-                    x = fused_mrf_level(x, ws, bs, ks, ds, cfg.lrelu_slope)
+                    x = fused_mrf_level(x, ws, bs, ks, ds, cfg.lrelu_slope, self.level_packs[i])
                 else:
                     x = mrf_level_plain(x, ws, bs, ks, ds, cfg.lrelu_slope, phase_split=True)
         x = F.leaky_relu(x)  # default slope 0.01

@@ -23,6 +23,7 @@ from consistencytta_torch.nn.layers import (
     asymmetric_pad_downsample,
     nearest_upsample_2d,
 )
+from consistencytta_torch.ops._packs import Pack
 from consistencytta_torch.ops.attention import flash_self_attention
 from consistencytta_torch.utils import span
 
@@ -58,13 +59,16 @@ class AttnBlock(nn.Module):
         self.k = nn.Conv2d(ch, ch, 1)
         self.v = nn.Conv2d(ch, ch, 1)
         self.proj_out = nn.Conv2d(ch, ch, 1)
+        self.qkv_pack = Pack()
 
     def forward(self, x):
         b, c, h, w = x.shape
         tokens = self.norm(x).flatten(2).transpose(1, 2)  # [B, H*W, C]
         # the three 1x1 projections as one matmul; q/k/v are views of it
-        w_qkv = torch.cat([self.q.weight, self.k.weight, self.v.weight]).reshape(3 * c, c)
-        b_qkv = torch.cat([self.q.bias, self.k.bias, self.v.bias])
+        ws = (self.q.weight, self.k.weight, self.v.weight)
+        bs = (self.q.bias, self.k.bias, self.v.bias)
+        w_qkv, b_qkv = self.qkv_pack.get(
+            (*ws, *bs), lambda: (torch.cat(ws).reshape(3 * c, c), torch.cat(bs)))
         q, k, v = F.linear(tokens, w_qkv, b_qkv).split(c, dim=-1)
         out = flash_self_attention(q, k, v, c ** -0.5)
         out = F.linear(out, self.proj_out.weight.reshape(c, c), self.proj_out.bias)

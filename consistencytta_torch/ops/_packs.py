@@ -1,58 +1,67 @@
-"""Kernel-layout copies of weights, made once per weight version.
+"""Kernel-layout copies of weights, held by the module whose weights they are.
 
-A kernel that reads its weights in a layout of its own (`ops/mrf.py`,
-`ops/dilated_conv.py`), and the UNet transformer's zero-padded weights
-(`nn/attention.py`), keep the copy here rather than making it at every
-call. The key holds each tensor's storage address, shape, dtype and device;
-the entry holds weak references to the tensors, their in-place version
-counters and the pack, and is taken only while they all live at those
-versions, so a storage freed and reused by other tensors can never hit it.
-An in-place update (an optimizer or EMA step) gives a new pack in the same
-entry, in constant time, so a training run's shadows, updated every step,
-keep one pack each; new tensors give a new entry, and the entries of
-tensors that died are dropped then. An in-place update must move the
-version counter: on CUDA `torch._foreach_lerp_` and the fused AdamW do not
-(torch 2.11), so `training/ema.py:ema_update` moves it itself.
+A kernel that reads its weights in a layout of its own (K3 in `ops/mrf.py`,
+K5 in `ops/dilated_conv.py`), the UNet transformer's zero-padded weights
+(`nn/attention.py`) and the VAE attention's fused q/k/v (`nn/vae.py`) read a
+copy of the published-shape weights. Each copy sits in a `Pack` that its
+owner, the module whose weights it copies, holds as a plain attribute (not a
+parameter or buffer, so state dicts do not see it); it lives and dies with
+that module. The rule, the one place it is written:
 
-While `graphs.run` captures a CUDA graph, a pack found here is handed to
-that graph, which holds it and makes it anew in place when its weights
-change in place; a pack made during the capture is made inside the graph,
-so each replay makes it from the weights it reads, and it is not kept here.
+- where any source tensor requires grad, the copy is made at every call and
+  kept by nobody, so the gradient reaches the published-shape parameters and
+  an optimizer step is read whether or not it moves a version counter (the
+  fused AdamW does not, torch 2.11);
+- where the sources are other tensors than last time (another data pointer,
+  or another tensor object at the same one), a new copy is made, detached;
+- where only their in-place version counters moved (a load_state_dict into
+  the same tensors, an EMA step), the copy is made anew into the same
+  storage, so a CUDA graph that reads that storage reads the new values;
+- else the kept copy is returned.
+
+An in-place update must move the version counter: on CUDA
+`torch._foreach_lerp_` does not (torch 2.11), so `training/ema.py:ema_update`
+moves it itself. A deepcopy or pickle of the owner gives an empty `Pack`.
 """
 
 from __future__ import annotations
 
 import weakref
-from collections import OrderedDict
-from typing import Callable, Hashable, Sequence
+from typing import Callable, Sequence
 
 import torch
 
-from consistencytta_torch import graphs
+
+def _flat(copy) -> list:
+    return [copy] if isinstance(copy, torch.Tensor) else list(copy)
 
 
-def cached_pack(cache: "OrderedDict[tuple, tuple]", size: int,
-                tensors: Sequence[torch.Tensor], extra: Hashable, make: Callable[[], object]):
-    """`make()`, or the pack it gave for these tensors at their current
-    versions; `cache` keeps at most `size` packs, the least recent dropped."""
-    key = tuple((t.data_ptr(), tuple(t.shape), t.dtype, t.device) for t in tensors) + (extra,)
-    versions = tuple(t._version for t in tensors)
-    hit = cache.get(key)
-    live = hit is not None and all(r() is t for r, t in zip(hit[0], tensors))
-    capture = graphs.recording()
-    if live and hit[2] == versions:
-        cache.move_to_end(key)
-        if capture is not None:
-            capture.keep(tensors, hit[1], make)
-        return hit[1]
-    if not live:
-        for k in [k for k, (refs, _, _) in cache.items() if any(r() is None for r in refs)]:
-            del cache[k]
-    pack = make()
-    if capture is not None:
-        return pack
-    cache[key] = (tuple(weakref.ref(t) for t in tensors), pack, versions)
-    cache.move_to_end(key)
-    while len(cache) > size:
-        cache.popitem(last=False)
-    return pack
+class Pack:
+    """One kernel-layout copy of a set of tensors (see the module docstring)."""
+
+    __slots__ = ("ptrs", "refs", "versions", "copy")
+
+    def __init__(self):
+        self.ptrs, self.refs, self.versions, self.copy = (), (), (), None
+
+    def __reduce__(self):
+        return Pack, ()
+
+    def get(self, tensors: Sequence[torch.Tensor], make: Callable[[], object]):
+        """The copy that `make()` gives of `tensors` (a tensor or a tuple of
+        them), made or kept as the module docstring says."""
+        if any(t.requires_grad for t in tensors):
+            return make()
+        ptrs = tuple(t.data_ptr() for t in tensors)
+        versions = tuple(t._version for t in tensors)
+        if ptrs != self.ptrs or any(r() is not t for r, t in zip(self.refs, tensors)):
+            copy = make()
+            self.copy = copy.detach() if isinstance(copy, torch.Tensor) else tuple(
+                t.detach() for t in copy)
+            self.ptrs, self.refs = ptrs, tuple(weakref.ref(t) for t in tensors)
+        elif versions != self.versions:
+            for dst, src in zip(_flat(self.copy), _flat(make())):
+                if dst.data_ptr() != src.data_ptr():  # a copy that is its source is current
+                    dst.copy_(src)
+        self.versions = versions
+        return self.copy

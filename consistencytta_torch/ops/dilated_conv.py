@@ -11,7 +11,7 @@ nothing in the JAX package dispatches the kernel it replaces: the vocoder's
 convs run inside the fused MRF level (`ops/mrf.py`) or as `F.conv1d`.
 
 The kernel is persistent (one block an SM) and takes its weights packed as
-wgmma A operands (`pack_weights`, made once per weight version and kept);
+wgmma A operands (`pack_weights`, kept in the caller's `ops._packs.Pack`);
 `tile_plan` sizes its shared memory: a TMA ring of x windows where the rows
 allow it (L % 8 == 0, x 16-byte aligned), a window buffer per consumer
 warpgroup (two, or one for the widest windows), and the taps' weights,
@@ -24,19 +24,17 @@ does not fit even so is refused before any launch: (k-1)*d above 3385, 1593,
 from __future__ import annotations
 
 import ctypes
-from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from consistencytta_torch.ops import _build
-from consistencytta_torch.ops._packs import cached_pack
+from consistencytta_torch.ops._packs import Pack
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 CHANNELS = (32, 64, 128)  # the C_in = C_out the kernel takes
 BAR_BYTES = 128  # the rings' mbarriers
-PACK_CACHE_SIZE = 8  # weight packs kept
 
 
 def dilated_conv1d_plain(x, w, dilation: int, padding: int):
@@ -99,14 +97,6 @@ def pack_weights(w: torch.Tensor) -> torch.Tensor:
     return F.pad(packed.transpose(2, 3), (0, 0, 0, weight_rows(c) - c)).contiguous()
 
 
-_PACKS: "OrderedDict[tuple, tuple]" = OrderedDict()
-
-
-def packed_weights(w: torch.Tensor) -> torch.Tensor:
-    """`pack_weights`, made once per weight version (`_packs.cached_pack`)."""
-    return cached_pack(_PACKS, PACK_CACHE_SIZE, (w,), None, lambda: pack_weights(w))
-
-
 def check_args(x, w, dilation: int, padding: int) -> TilePlan:
     """What the kernel takes, checked before any launch; returns its plan."""
     for name, t in (("x", x), ("w", w)):
@@ -133,8 +123,10 @@ def check_args(x, w, dilation: int, padding: int) -> TilePlan:
     return plan
 
 
-def _dilated_conv_cuda(x, w, dilation: int, padding: int, out=None):
-    """Launch K5; `out` ([B, C, L_out] bf16, contiguous, on x's device) is
+def _dilated_conv_cuda(x, w, dilation: int, padding: int, out=None,
+                       pack: Optional[Pack] = None):
+    """Launch K5 on the weights kept in `pack` (packed for this call alone
+    without one); `out` ([B, C, L_out] bf16, contiguous, on x's device) is
     written in place of a new tensor when given."""
     plan = check_args(x, w, dilation, padding)
     b, c, length = x.shape
@@ -144,7 +136,7 @@ def _dilated_conv_cuda(x, w, dilation: int, padding: int, out=None):
     if y.shape != (b, c, l_out) or y.dtype != x.dtype or not y.is_contiguous() \
             or y.device != x.device:
         raise ValueError("dilated_conv1d: out must be a contiguous tensor like the output")
-    w_packed = packed_weights(w)
+    w_packed = pack_weights(w) if pack is None else pack.get((w,), lambda: pack_weights(w))
     fn = _build.load("dilated_conv").dilated_conv1d_fwd
     fn.restype = ctypes.c_int
     code = fn(
@@ -162,10 +154,10 @@ def _dilated_conv_cuda(x, w, dilation: int, padding: int, out=None):
 
 class _DilatedConv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, dilation, padding):
+    def forward(ctx, x, w, dilation, padding, pack):
         ctx.save_for_backward(x, w)
         ctx.cfg = (dilation, padding)
-        return _dilated_conv_cuda(x, w, dilation, padding)
+        return _dilated_conv_cuda(x, w, dilation, padding, pack=pack)
 
     @staticmethod
     def backward(ctx, g):
@@ -174,13 +166,16 @@ class _DilatedConv(torch.autograd.Function):
             xx, ww = x.detach().requires_grad_(), w.detach().requires_grad_()
             out = dilated_conv1d_plain(xx, ww, *ctx.cfg)
             gx, gw = torch.autograd.grad(out, (xx, ww), g)
-        return gx, gw, None, None
+        return gx, gw, None, None, None
 
 
-def dilated_conv1d(x: torch.Tensor, w: torch.Tensor, dilation: int, padding: int):
-    """K5: x [B, C, L], w [C_out, C_in, k] -> [B, C_out, L_out]."""
+def dilated_conv1d(x: torch.Tensor, w: torch.Tensor, dilation: int, padding: int,
+                   pack: Optional[Pack] = None):
+    """K5: x [B, C, L], w [C_out, C_in, k] -> [B, C_out, L_out]. The kernel's
+    weight layout is kept in `pack`, which a caller that runs the conv again
+    holds; without one it is made for this call alone."""
     if x.is_cuda:
-        return _DilatedConv.apply(x, w, dilation, padding)
+        return _DilatedConv.apply(x, w, dilation, padding, pack)
     return dilated_conv1d_plain(x, w, dilation, padding)
 
 

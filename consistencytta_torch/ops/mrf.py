@@ -9,29 +9,26 @@ multiple of 128; three ResBlocks of three dilations) and raises on
 anything else; on a CPU tensor it runs `mrf_level_plain`. The backward
 differentiates the plain chain, as the JAX package's custom VJP does.
 
-The kernel takes the weights packed K-major (`pack_weights`); the pack is
-made once per weight version and kept (`packed_weights`), keyed on the
-tensors' storage and in-place version counters.
+The kernel takes the weights packed K-major (`pack_weights`), kept in the
+caller's `ops._packs.Pack` (one a level: `HiFiGANGenerator` holds them).
 """
 
 from __future__ import annotations
 
 import ctypes
-from collections import OrderedDict
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from consistencytta_torch.ops import _build
-from consistencytta_torch.ops._packs import cached_pack
+from consistencytta_torch.ops._packs import Pack
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 STAGES = 4  # weight units in the kernel's ring
 UNIT_K = 64  # reduction values (tap x input channel) of a weight unit
 BAR_BYTES = 128  # the ring's mbarriers
 CONSUMER_GROUPS = 2  # consumer warpgroups a block
-PACK_CACHE_SIZE = 8  # weight packs kept (one per vocoder level, and some)
 
 
 def _lrelu(x, slope):
@@ -144,17 +141,10 @@ def pack_weights(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor]
             torch.stack([b.detach().to(torch.bfloat16) for b in biases]).contiguous())
 
 
-_PACKS: "OrderedDict[tuple, tuple]" = OrderedDict()
-
-
-def packed_weights(weights, biases, kernel_sizes):
-    """`pack_weights`, made once per weight version (`_packs.cached_pack`)."""
-    return cached_pack(_PACKS, PACK_CACHE_SIZE, (*weights, *biases), tuple(kernel_sizes),
-                       lambda: pack_weights(weights, biases, kernel_sizes))
-
-
-def _mrf_cuda(x, weights, biases, kernel_sizes, dilations, slope, out=None):
-    """Launch K3; `out` ([B, C, L] bf16, contiguous, 16-byte aligned) is
+def _mrf_cuda(x, weights, biases, kernel_sizes, dilations, slope, out=None,
+              pack: Optional[Pack] = None):
+    """Launch K3 on the weights kept in `pack` (packed for this call alone
+    without one); `out` ([B, C, L] bf16, contiguous, 16-byte aligned) is
     written in place of a new tensor when given."""
     b, c, length = x.shape
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
@@ -173,7 +163,8 @@ def _mrf_cuda(x, weights, biases, kernel_sizes, dilations, slope, out=None):
             raise ValueError(f"fused_mrf_level: weight {i} has shape {tuple(w.shape)}")
     if x.data_ptr() % 16:
         x = x.clone()  # the kernel's 16-byte loads
-    w_packed, b_packed = packed_weights(weights, biases, kernel_sizes)
+    make = lambda: pack_weights(weights, biases, kernel_sizes)
+    w_packed, b_packed = make() if pack is None else pack.get((*weights, *biases), make)
     t, rows, in_smem = tile_plan(c, length, kernel_sizes, dilations)
     n_work = b * -(-length // t)
     if in_smem:
@@ -205,11 +196,11 @@ def _mrf_cuda(x, weights, biases, kernel_sizes, dilations, slope, out=None):
 
 class _FusedMrf(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, kernel_sizes, dilations, slope, *params):
+    def forward(ctx, x, kernel_sizes, dilations, slope, pack, *params):
         ctx.save_for_backward(x, *params)
         ctx.cfg = (kernel_sizes, dilations, slope)
         n = len(params) // 2
-        return _mrf_cuda(x, params[:n], params[n:], kernel_sizes, dilations, slope)
+        return _mrf_cuda(x, params[:n], params[n:], kernel_sizes, dilations, slope, pack=pack)
 
     @staticmethod
     def backward(ctx, g):
@@ -218,14 +209,14 @@ class _FusedMrf(torch.autograd.Function):
         x, *params = ctx.saved_tensors
         kernel_sizes, dilations, slope = ctx.cfg
         n = len(params) // 2
-        needs = (ctx.needs_input_grad[0], *ctx.needs_input_grad[4:])
+        needs = (ctx.needs_input_grad[0], *ctx.needs_input_grad[5:])
         with torch.enable_grad():
             xs = [t.detach().requires_grad_(need) for t, need in zip((x, *params), needs)]
             out = mrf_level_plain(xs[0], xs[1:1 + n], xs[1 + n:],
                                   kernel_sizes, dilations, slope)
             found = iter(torch.autograd.grad(out, [t for t in xs if t.requires_grad], g))
         grads = [next(found) if need else None for need in needs]
-        return (grads[0], None, None, None, *grads[1:])
+        return (grads[0], None, None, None, None, *grads[1:])
 
 
 def fused_mrf_level(
@@ -235,13 +226,15 @@ def fused_mrf_level(
     kernel_sizes: Sequence[int],
     dilations: Sequence[Sequence[int]],
     slope: float,
+    pack: Optional[Pack] = None,
 ) -> torch.Tensor:
-    """K3: one MRF level, x [B, C, L] -> [B, C, L]."""
+    """K3: one MRF level, x [B, C, L] -> [B, C, L]. The kernel's weight
+    layout is kept in `pack`, which a caller that runs the level again holds;
+    without one it is made for this call alone."""
     kernel_sizes = tuple(kernel_sizes)
     dilations = tuple(tuple(d) for d in dilations)
     if x.is_cuda:
-        return _FusedMrf.apply(x, kernel_sizes, dilations, slope,
-                               *weights, *biases)
+        return _FusedMrf.apply(x, kernel_sizes, dilations, slope, pack, *weights, *biases)
     return mrf_level_plain(x, weights, biases, kernel_sizes, dilations, slope)
 
 

@@ -29,6 +29,7 @@ import torch
 
 from consistencytta_torch.configs import STFTConfig
 from consistencytta_torch.ops import _build, mrf, stft
+from consistencytta_torch.ops._packs import Pack
 from consistencytta_torch.tools.attention_bench import device_ms, host_us
 
 KS, DS = (3, 7, 11), ((1, 3, 5),) * 3
@@ -98,7 +99,8 @@ def main() -> None:
                               **errors(fe.magnitude(wav), want)}), flush=True)
     for c, length in LEVELS:
         x, ws, bs = mrf_inputs(gen, 32, c, length)
-        kern = lambda: mrf.fused_mrf_level(x, ws, bs, KS, DS, 0.1)
+        pack = Pack()  # the kernel's weight layout, made once as the vocoder keeps it
+        kern = lambda: mrf.fused_mrf_level(x, ws, bs, KS, DS, 0.1, pack)
         print(json.dumps({
             "kernel": "fused_mrf_level", "B": 32, "C": c, "L": length,
             "ms": [device_ms(kern, 2), device_ms(kern, 2)],

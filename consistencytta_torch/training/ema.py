@@ -23,6 +23,6 @@ def ema_update(shadow, module: nn.Module, decay: float) -> None:
         raise ValueError("ema_update: the modules differ in their parameters")
     torch._foreach_lerp_(s, p, 1.0 - decay)
     # on CUDA the fused lerp leaves the tensors' version counters as they were
-    # (torch 2.11), and the padded and packed weight copies that frozen calls
-    # keep (ops/_packs.py) are made anew only when a version moves
+    # (torch 2.11); the weight copies read them (ops/_packs.py), and so do
+    # the CUDA graphs (graphs.py)
     torch.autograd.graph.increment_version(s)

@@ -10,10 +10,9 @@ The update is merged into the base weights before each query: the weight W
 [out, in] becomes W + scale * (A @ B)^T, and the base UNet runs with the
 merged weights through `torch.func.functional_call`. Gradients then reach
 only A and B, and the EMA shadows of a LoRA run are factor modules too. The
-UNet's attention pads the weights it is handed (`nn/attention.py`): anew at
-a call on merged weights that require grad, and for those that do not
-(merged under no_grad) from a cache keyed on the merged tensors themselves,
-so merged weights reach kernel K1 and the GEMMs unchanged.
+UNet's attention pads the weights it is handed (`nn/attention.py`), merged
+ones too, so they reach kernel K1 and the GEMMs unchanged; `ops/_packs.py`
+says when such a copy is made.
 
 A LoRA `TrainState` (`init_lora_state`) holds `LoRAFactors` in its three
 roles and the frozen base in `lora_base`; the step and validation builders

@@ -34,6 +34,7 @@ from consistencytta_torch.configs import STFTConfig
 from consistencytta_torch.ops import attention as ops
 from consistencytta_torch.ops import dilated_conv as dc
 from consistencytta_torch.ops import mrf, norm, stft
+from consistencytta_torch.ops._packs import Pack
 from consistencytta_torch.tools import norm_cases as nc
 
 KS = (3, 7, 11)
@@ -292,9 +293,10 @@ def test_mrf_writes_nothing_outside_its_output(gen, b, c, length):
 
 def test_mrf_repacks_after_an_in_place_weight_update(gen):
     x, ws, bs = _mrf_inputs(gen, 1, 64, 500)
-    mrf.fused_mrf_level(x, ws, bs, KS, DS, 0.1)
+    pack = Pack()  # held across the calls, as the vocoder holds its levels'
+    mrf.fused_mrf_level(x, ws, bs, KS, DS, 0.1, pack)
     ws[4].mul_(-1.0)
-    got = mrf.fused_mrf_level(x, ws, bs, KS, DS, 0.1)
+    got = mrf.fused_mrf_level(x, ws, bs, KS, DS, 0.1, pack)
     assert_close_rel(got, mrf.mrf_level_plain(x, ws, bs, KS, DS, 0.1), 3e-2)
 
 
@@ -524,9 +526,11 @@ def test_dilated_conv1d_writes_nothing_outside_its_output(gen, c, length, p):
 
 def test_dilated_conv1d_repacks_after_an_in_place_weight_update(gen):
     x, w = _conv_inputs(gen, 1, 64, 512, 3)
-    dc.dilated_conv1d(x, w, 3, 3)
+    pack = Pack()
+    dc.dilated_conv1d(x, w, 3, 3, pack)
     w.mul_(-1.0)
-    assert_close_rel(dc.dilated_conv1d(x, w, 3, 3), dc.dilated_conv1d_plain(x, w, 3, 3), 2e-2)
+    assert_close_rel(dc.dilated_conv1d(x, w, 3, 3, pack), dc.dilated_conv1d_plain(x, w, 3, 3),
+                     2e-2)
 
 
 def test_dilated_conv1d_refuses_what_it_does_not_take(gen):

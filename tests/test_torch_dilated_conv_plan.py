@@ -1,7 +1,8 @@
 """The host side of the dilated-conv kernel K5 (consistencytta_torch/ops/
-dilated_conv.py), on the CPU: the weight pack the kernel reads, its cache,
-the tile plan that sizes the kernel's shared memory, the refusals that come
-before any launch, and the kernel's shared-memory layouts (the wgmma
+dilated_conv.py), on the CPU: the weight pack the kernel reads, kept in a
+caller's `ops._packs.Pack`, the tile plan that sizes the kernel's shared
+memory, the refusals that come before any launch, and the kernel's
+shared-memory layouts (the wgmma
 operands through their descriptors, the staged output tile) composed in
 numpy into the conv itself.
 
@@ -20,6 +21,7 @@ import torch
 
 from consistencytta_torch.ops import _build
 from consistencytta_torch.ops import dilated_conv as dc
+from consistencytta_torch.ops._packs import Pack
 
 
 def _unpack(packed: torch.Tensor, c: int) -> torch.Tensor:
@@ -44,15 +46,21 @@ def test_weight_pack_round_trips(c, k):
 
 
 def test_pack_cache_repacks_after_in_place_update():
+    """The pack in the caller's `Pack`."""
     w = torch.randn(64, 64, 3, generator=torch.Generator().manual_seed(0)).bfloat16()
-    first = dc.packed_weights(w)
-    assert dc.packed_weights(w) is first  # same version: the same pack
+    pack = Pack()
+
+    def get(w):
+        return pack.get((w,), lambda: dc.pack_weights(w))
+
+    first = get(w)
+    assert get(w) is first  # same version: the same pack
     with torch.no_grad():
         w.mul_(2.0)  # an optimizer step updates in place
-    second = dc.packed_weights(w)
-    assert second is not first
+    second = get(w)
+    assert second.data_ptr() == first.data_ptr()  # made anew into the same storage
     assert torch.equal(_unpack(second, 64), w)
-    assert dc.packed_weights(w.clone()) is not second  # new tensors are packed anew
+    assert get(w.clone()).data_ptr() != second.data_ptr()  # new tensors are packed anew
 
 
 @pytest.mark.parametrize("tma", [True, False])

@@ -3,18 +3,20 @@
 On the CPU, at `PipelineConfig.tiny()` in float32: every call stays eager,
 gives the waveform it gave under `graphs.eager()` bit for bit and counts one
 eager call per stage call; the eligibility rule refuses a call for each of
-its conditions; the key changes with a shape, a replaced parameter or a new
+its conditions, weights changed in place since the module's last call among
+them; the key changes with a shape, a replaced parameter or a new
 submodule, and not with an in-place update.
 
 On the card (marker `cuda`, skipped without one), at the published widths in
 bf16, with random weights: a replay equals the eager call bit for bit for
 each module and end to end at batch 1 (text lengths 8, 40, 8 interleaved) and
 at batch 32; a returned waveform outlives the next call; forward hooks fire
-around a replay and their events bracket its kernels; a replay reads the
-vocoder's weight packs after they left their cache, and weights loaded in
-place; the graph and launch counters read what the calls imply, and every
-norm of a call launches the norm kernel; a UNet graph holds the transformer's
-padded weights that the eager warm-up made, and a traced UNet query
+around a replay and their events bracket its kernels; after weights change
+in place (a load, an update of the vocoder's or the UNet's), one call runs
+eagerly and remakes the kernel-layout copies in their storage, and the
+replays after it equal eager calls; the graph and launch counters read what
+the calls imply, and every norm of a call launches the norm kernel; a UNet's
+capture makes none of the transformer's padded copies, and a traced UNet query
 launches none of cuBLAS's unaligned GEMM fallbacks, which one GEMM on the
 transformer's unpadded width does. The file imports nothing of JAX:
 
@@ -99,7 +101,7 @@ def test_cpu_calls_stay_eager_and_bit_identical(port, sampler):
         s: {"captures": 0, "replays": 0, "eager": calls[s]} for s in STAGES}
 
 
-REFUSAL_CASES = ("none", "eager", "grad", "autocast", "trainable", "scalar")
+REFUSAL_CASES = ("none", "eager", "grad", "autocast", "trainable", "scalar", "updated")
 
 
 @pytest.mark.parametrize("case", REFUSAL_CASES)
@@ -108,6 +110,10 @@ def test_eligibility_refuses_each_condition(port, case):
     args = _unet_args(port, timestep=999.0) if case == "scalar" else _unet_args(port)
     if case == "trainable":
         set_trainable(unet)
+    if case == "updated":
+        with torch.no_grad():
+            unet(*args)  # the module's last call, at these versions
+            unet.conv_in.weight.mul_(1.0)  # an in-place update: a new version
     try:
         with contextlib.ExitStack() as stack:
             stack.enter_context(torch.enable_grad() if case == "grad" else torch.no_grad())
@@ -283,34 +289,52 @@ def test_hooks_fire_around_a_replay(card, stage):
     assert hooked >= 0.9 * min(alone), (hooked, alone)
 
 
+def _scale_in_place(module, factor):
+    with torch.no_grad():
+        for p in module.parameters():
+            p.mul_(factor)
+
+
+def _settle(module, args):
+    """Call `module` once, so that the versions its weights moved to are
+    recorded and its next call replays again."""
+    with torch.no_grad():
+        module(*args)
+
+
 @pytest.mark.cuda
 def test_replay_outlives_the_pack_cache(card):
-    from consistencytta_torch.ops import mrf
-
+    """The vocoder's K3 weight packs, which its levels' `Pack`s hold: after
+    the weights change in place, one eager call makes them anew into the
+    storage the graph reads, and the replays after it equal eager calls."""
     module, args = _stage_calls(card, 1, 8)["vocoder"]
-    with torch.no_grad():
-        module(*args)  # captured, holding its packs
-        g = torch.Generator(device="cuda").manual_seed(9)
-        others = []  # alive, so that their packs stay in the cache
-        for _ in range(mrf.PACK_CACHE_SIZE + 1):
-            ws = [torch.randn(32, 32, k, device="cuda", generator=g).bfloat16()
-                  for k in (3, 3, 3, 3, 3, 3, 7, 7, 7, 7, 7, 7, 11, 11, 11, 11, 11, 11)]
-            bs = [torch.randn(32, device="cuda", generator=g).bfloat16() for _ in ws]
-            mrf.packed_weights(ws, bs, (3, 7, 11))
-            others.append((ws, bs))
-        vocoder_packs = {id(p.pack) for rec in graphs._STATES[module].graphs.values()
-                         for p in rec.packs}
-        assert vocoder_packs and not vocoder_packs & {id(v[1]) for v in mrf._PACKS.values()}
-        # NaN in blocks of the packs' sizes: a pack freed on eviction would be
-        # overwritten here
-        junk = [torch.full(shape, float("nan"), dtype=torch.bfloat16, device="cuda")
-                for c in (128, 64, 32)
-                for shape in ((18 * c, -(-11 * c // mrf.UNIT_K) * mrf.UNIT_K), (18, c))]
-        got = module(*args)
-        del junk
-        with graphs.eager():
-            want = module(*args)
-    assert torch.equal(got, want)
+    ptrs = lambda: [t.data_ptr() for p in module.level_packs if p.copy for t in p.copy]
+    try:
+        with torch.no_grad():
+            module(*args)  # captured, reading the packs
+            held = ptrs()
+            assert len(held) == 2 * 3  # weights and biases of the three fused levels
+            _scale_in_place(module, 0.5)
+            utils.reset_graph_counts()
+            first = module(*args)
+            assert utils.graph_counts()["vocoder"] == {"captures": 0, "replays": 0, "eager": 1}
+            assert ptrs() == held
+            # NaN in blocks of the packs' sizes: a pack whose storage was
+            # freed and taken again would be overwritten here
+            from consistencytta_torch.ops import mrf
+
+            junk = [torch.full(shape, float("nan"), dtype=torch.bfloat16, device="cuda")
+                    for c in (128, 64, 32)
+                    for shape in ((18 * c, -(-11 * c // mrf.UNIT_K) * mrf.UNIT_K), (18, c))]
+            got = module(*args)
+            del junk
+            assert utils.graph_counts()["vocoder"]["replays"] == 1
+            with graphs.eager():
+                want = module(*args)
+    finally:
+        _scale_in_place(module, 2.0)
+        _settle(module, args)
+    assert torch.equal(first, want) and torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -327,14 +351,16 @@ def test_replay_reads_weights_loaded_in_place(card, stage):
                                     if v.is_floating_point() else v
                                     for k, v in saved.items()})
             utils.reset_graph_counts()
+            first = module(*args)  # eager: the weights' versions moved
             got = module(*args)
             counts = utils.graph_counts()[stage]
             with graphs.eager():
                 want = module(*args)
     finally:
         module.load_state_dict(saved)
-    assert counts == {"captures": 0, "replays": 1, "eager": 0}
-    assert torch.equal(got, want) and not torch.equal(got, before)
+        _settle(module, args)
+    assert counts == {"captures": 0, "replays": 1, "eager": 1}
+    assert torch.equal(first, want) and torch.equal(got, want) and not torch.equal(got, before)
 
 
 @pytest.mark.cuda
@@ -380,17 +406,38 @@ def test_every_norm_of_a_call_launches_the_norm_kernel(card):
 @pytest.mark.cuda
 def test_unet_graph_holds_the_padded_weights_made_before_its_capture(card):
     """The transformer's zero-padded weights (nn/attention.py), 6 copies a
-    transformer, are the cache's own: made eagerly before the capture, so a
-    replay makes none of them."""
+    transformer, held by their modules: made eagerly before a capture, so
+    the capture makes none; after the weights change in place, one eager
+    call makes them anew in the same storage, and the replays after it
+    equal eager calls."""
     from consistencytta_torch.nn import attention
 
     module, args = _stage_calls(card, 1, 13)["unet"]  # a shape no other test calls
-    with torch.no_grad():
-        module(*args)
-    rec = graphs._STATES[module].graphs[graphs._call_key(args)]
-    held = [id(p.pack) for p in rec.packs]
-    assert len(held) == 6 * 16
-    assert set(held) <= {id(v[1]) for v in attention._PACKS.values()}
+    packs = [p for m in module.modules()
+             for p in ((m.proj_in_pack, m.proj_out_pack) if isinstance(m, attention.Transformer2D)
+                       else (m.pack,) if isinstance(m, (attention.Attention, attention.GEGLU,
+                                                        attention.FeedForward)) else ())]
+    ptrs = lambda: [t.data_ptr() for p in packs if p.copy for t in p.copy]
+    try:
+        with torch.no_grad():
+            with graphs.eager():
+                module(*args)
+            held = ptrs()
+            assert len(packs) == 6 * 16 and all(p.copy for p in packs)
+            utils.reset_graph_counts()
+            module(*args)  # captured
+            assert utils.graph_counts()["unet"]["captures"] == 1 and ptrs() == held
+            _scale_in_place(module, 0.5)
+            first = module(*args)
+            got = module(*args)
+            assert utils.graph_counts()["unet"] == {"captures": 1, "replays": 1, "eager": 1}
+            assert ptrs() == held
+            with graphs.eager():
+                want = module(*args)
+    finally:
+        _scale_in_place(module, 2.0)
+        _settle(module, args)
+    assert torch.equal(first, want) and torch.equal(got, want)
 
 
 @pytest.mark.cuda

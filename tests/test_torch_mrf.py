@@ -8,6 +8,8 @@ convolutions summed in another order). The kernel itself runs only on the
 card: tests/test_torch_cuda_kernels.py holds it against the plain version.
 """
 
+import gc
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ from consistencytta_torch.configs import HiFiGANConfig
 from consistencytta_torch.io.from_jax import hifigan_state_dict
 from consistencytta_torch.nn.hifigan import HiFiGANGenerator, vocoder_postprocess
 from consistencytta_torch.ops import mrf
+from consistencytta_torch.ops._packs import Pack
 
 KS = (3, 7, 11)
 DS = ((1, 3, 5),) * 3
@@ -132,26 +135,33 @@ def test_weight_pack_round_trips(c):
 
 
 def test_pack_cache_repacks_after_in_place_update():
+    """The K-major pack in the caller's `Pack` (the vocoder holds one a level)."""
     g = torch.Generator().manual_seed(0)
     ws = [torch.randn(32, 32, k, generator=g) for k in KS for _ in range(6)]
     bs = [torch.randn(32, generator=g) for _ in range(18)]
-    first = mrf.packed_weights(ws, bs, KS)
-    assert mrf.packed_weights(ws, bs, KS) is first  # same version: the same pack
+    pack = Pack()
+
+    def get(ws, bs):
+        return pack.get((*ws, *bs), lambda: mrf.pack_weights(ws, bs, KS))
+
+    first = get(ws, bs)
+    assert get(ws, bs) is first  # same version: the same pack
+    ptr = first[0].data_ptr()
     with torch.no_grad():
         ws[7].mul_(2.0)  # an optimizer step updates in place
-    second = mrf.packed_weights(ws, bs, KS)
-    assert second is not first
+    second = get(ws, bs)
+    assert second[0].data_ptr() == ptr  # made anew into the same storage
     assert torch.equal(_unpack(second[0], KS, 32)[7], ws[7].bfloat16())
     bs[3].add_(1.0)
-    assert torch.equal(mrf.packed_weights(ws, bs, KS)[1][3], bs[3].bfloat16())
+    assert torch.equal(get(ws, bs)[1][3], bs[3].bfloat16())
     # new tensors with the same values are packed anew, never confused with the old
-    assert mrf.packed_weights([w.clone() for w in ws], bs, KS)[0] is not second[0]
-    # the cache holds no tensor alive: the packs of dead weights are dropped
-    del ws, bs, first, second
-    live_w = [torch.ones(32, 32, k) for k in KS for _ in range(6)]
-    live_b = [torch.ones(32) for _ in range(18)]
-    mrf.packed_weights(live_w, live_b, KS)
-    assert all(r() is not None for refs, *_ in mrf._PACKS.values() for r in refs)
+    clones = [w.clone() for w in ws]
+    assert get(clones, bs)[0].data_ptr() != ptr
+    # the pack holds no tensor it was made from alive
+    refs = pack.refs
+    del ws, bs, clones, first, second
+    gc.collect()
+    assert refs and all(r() is None for r in refs)
 
 
 def test_hifigan_generator_matches_jax():

@@ -11,7 +11,9 @@ largest magnitude (float32, sums in another order: they read at most
 2e-6); the pad features are exact zeros after proj_in,
 after each block and its parts, and in the cross-attention heads; state
 dicts keep their keys and shapes; the padded weights of a frozen module are
-made once per weight version, and a trainable module's at every call.
+made once per weight version and held by their module (`ops._packs.Pack`),
+made anew into the same storage after an in-place update and freed with
+the module, and a trainable module's are made at every call.
 Planted faults are caught: a nonzero pad feature out of proj_in (by the
 zero check: every consumer reads the pads through zero columns, so the
 output does not show it) and the softmax scale taken from the padded head
@@ -33,6 +35,7 @@ from consistencytta_torch.configs import UNetConfig
 from consistencytta_torch.io import from_jax
 from consistencytta_torch.nn import attention
 from consistencytta_torch.nn.attention import Transformer2D
+from consistencytta_torch.ops._packs import Pack
 from consistencytta_tpu.nn.attention import Transformer2D as JaxTransformer2D
 
 CROSS, TEXT, BATCH, HW = 24, 7, 2, (3, 4)
@@ -200,8 +203,8 @@ def test_zero_check_catches_a_nonzero_pad_out_of_proj_in(monkeypatch):
     args = _inputs(channels)
     padded_linear = attention.padded_linear
 
-    def faulty(lin, rows, cols):
-        w, b = padded_linear(lin, rows, cols)
+    def faulty(lin, rows, cols, pack):
+        w, b = padded_linear(lin, rows, cols, pack)
         if lin is m.proj_in:
             b = b.clone()
             b[-1] = 0.5
@@ -256,58 +259,85 @@ def test_state_dict_keeps_published_keys_and_shapes():
     m.load_state_dict({k: torch.randn(s) for k, s in published.items()}, strict=True)
 
 
+def _packs(m):
+    """The six `Pack`s of a padded Transformer2D, in call order: proj_in,
+    attn1, attn2, the GEGLU, net.2, proj_out."""
+    blk = m.transformer_blocks[0]
+    return [m.proj_in_pack, blk.attn1.pack, blk.attn2.pack, blk.ff.net[0].pack, blk.ff.pack,
+            m.proj_out_pack]
+
+
+def _copies(m):
+    return [t for p in _packs(m) if p.copy is not None for t in p.copy]
+
+
 def test_frozen_calls_pad_once_per_weight_version():
     heads, channels = CASES[0]
     m = _model(heads, channels)
     args = _inputs(channels)
-    attention._PACKS.clear()
     with torch.no_grad():
         first = m(*args)
-        packs = {k: v[1] for k, v in attention._PACKS.items()}
-        assert len(packs) == 6  # proj_in, attn1, attn2, the GEGLU, net.2, proj_out
+        copies = _copies(m)
+        assert all(p.copy is not None for p in _packs(m))
         assert torch.equal(m(*args), first)
-        assert {k: v[1] for k, v in attention._PACKS.items()} == packs  # the same tensors
-        w, b = attention.padded_linear(m.proj_in, 256, 256)
+        assert all(a is b for a, b in zip(_copies(m), copies))  # the same tensors
+        w, b = attention.padded_linear(m.proj_in, 256, 256, m.proj_in_pack)
         assert w.shape == (256, 256) and not w[255:].any() and not b[255:].any()
         m.proj_in.weight.mul_(2)  # an in-place update: a new version
-        w2, _ = attention.padded_linear(m.proj_in, 256, 256)
-        assert w2 is not w and torch.equal(w2[:255], m.proj_in.weight)
+        w2, _ = attention.padded_linear(m.proj_in, 256, 256, m.proj_in_pack)
+        assert w2.data_ptr() == w.data_ptr() and torch.equal(w2[:255], m.proj_in.weight)
     # trainable weights are padded anew at every call, and the gradient reaches them
     m.proj_in.requires_grad_(True)
-    w3, _ = attention.padded_linear(m.proj_in, 256, 256)
+    w3, _ = attention.padded_linear(m.proj_in, 256, 256, m.proj_in_pack)
     assert w3.grad_fn is not None
     with torch.no_grad():
-        w4, _ = attention.padded_linear(m.proj_in, 256, 256)
-        assert w4 is not attention.padded_linear(m.proj_in, 256, 256)[0]
+        w4, _ = attention.padded_linear(m.proj_in, 256, 256, m.proj_in_pack)
+        assert w4 is not attention.padded_linear(m.proj_in, 256, 256, m.proj_in_pack)[0]
 
 
 def test_a_trainable_module_without_grad_reads_its_weights_after_an_update():
     """A trained student queried under no_grad (validation) between
     optimizer steps that move no version counter (the fused AdamW; here
     an update through .data): each call pads the weights as they are, and
-    the cache keeps none of them."""
+    no module keeps a copy."""
     heads, channels = CASES[0]
     m = _model(heads, channels, trainable=True)
     args = _inputs(channels)
-    attention._PACKS.clear()
     with torch.no_grad():
         first = m(*args)
         for p in m.parameters():
             p.data.mul_(1.5)  # the tensors' versions stay
         second = m(*args)
-        assert not attention._PACKS
+        assert not _copies(m)
         frozen = copy.deepcopy(m).requires_grad_(False)
         assert torch.equal(second, frozen(*args))
         assert not torch.equal(second, first)
 
 
-def test_cache_holds_every_transformer_of_a_teacher_and_a_student():
+def test_a_dropped_unets_padded_copies_are_freed_at_once():
+    """The copies live and die with the module whose weights they are: a
+    UNet's are gone once it is dropped, with no later call to clear them."""
+    import gc
+    import weakref
+
+    from consistencytta_torch.configs import PipelineConfig
     from consistencytta_torch.nn.unet import UNet2DConditionGuided
 
-    with torch.device("meta"):
-        unet = UNet2DConditionGuided(UNetConfig())
-    n = sum(isinstance(m, Transformer2D) for m in unet.modules())
-    assert n == 16 and 2 * 6 * n <= attention.PACK_CACHE_SIZE
+    tiny = PipelineConfig.tiny()
+    cfg, ls = tiny.unet, tiny.latent
+    torch.manual_seed(0)
+    unet = UNet2DConditionGuided(cfg).requires_grad_(False)
+    sample = torch.randn(1, ls.t, ls.f, ls.c)
+    text = torch.randn(1, 5, cfg.cross_attention_dim)
+    with torch.no_grad():
+        unet(sample, torch.full((1,), 999.0), text, torch.ones(1, 5, dtype=torch.long),
+             torch.full((1,), 4.0))
+    refs = [weakref.ref(t) for m in unet.modules() if isinstance(m, attention.Attention)
+            and m.pack.copy is not None for t in m.pack.copy]
+    assert refs
+    del unet
+    gc.collect()
+    assert all(r() is None for r in refs)
 
 
 def test_aligned_widths_pad_nothing_but_the_self_attention_heads():
@@ -315,61 +345,51 @@ def test_aligned_widths_pad_nothing_but_the_self_attention_heads():
     padded copy is K1's fused QKV, as before; every other GEMM reads the
     parameters themselves."""
     m = _model(2, 16)
-    attention._PACKS.clear()
     with torch.no_grad():
         m(*_inputs(16))
-    assert [k[-1] for k in attention._PACKS] == [(True, 16)]
+    held = [p for p in _packs(m) if p.copy is not None]
+    assert held == [m.transformer_blocks[0].attn1.pack]
+    assert held[0].copy[0].shape == (3 * 2 * 64, 16)
     lin = m.transformer_blocks[0].ff.net[2]
-    assert attention.padded_linear(lin, 16, 64) == (lin.weight, lin.bias)
+    assert attention.padded_linear(lin, 16, 64, Pack()) == (lin.weight, lin.bias)
 
 
-def test_a_graphs_padded_weights_follow_an_in_place_update(monkeypatch):
-    """As a CUDA graph holds them (graphs._Pack, the capture's `keep`): the
-    padded copies found in the cache while a capture records, made anew in
-    place after the weights change in place, equal the copies the new
-    weights give."""
-    from consistencytta_torch import graphs
-
-    class Recording:  # the capture's side of cached_pack, without a card
-        packs = []
-
-        def keep(self, tensors, pack, make):
-            self.packs.append(graphs._Pack(tensors, pack, make))
-
+def test_a_graphs_padded_weights_follow_an_in_place_update():
+    """As a CUDA graph reads them, at fixed addresses: after the weights
+    change in place, the next call makes each module's padded copies anew
+    into the same storage, equal to the copies the new weights give."""
     m = _model(5, 256)
     args = _inputs(256)
-    attention._PACKS.clear()
     with torch.no_grad():
-        m(*args)  # the warm-up makes them
-        rec = Recording()
-        monkeypatch.setattr(graphs, "_recording", rec)
-        m(*args)
-        monkeypatch.setattr(graphs, "_recording", None)
-        assert len(rec.packs) == 6
+        m(*args)  # the warm-up before a capture makes them
+        ptrs = [t.data_ptr() for t in _copies(m)]
+        # weight and bias each, but attn1's fused qkv, w, b and attn2's q, k, v, w, b
+        assert len(ptrs) == 4 * 2 + 3 + 5
         for p in m.parameters():
             p.mul_(1.5)
-        for pack in rec.packs:
-            pack.refresh()
-        attention._PACKS.clear()
         m(*args)
-    fresh = [v[1] for v in attention._PACKS.values()]
-    assert len(fresh) == 6
-    for kept, new in zip(rec.packs, fresh):
-        assert all(torch.equal(a, b) for a, b in zip(kept.pack, new))
+        fresh = copy.deepcopy(m)  # a deepcopy holds no copy: it makes its own
+        assert not _copies(fresh)
+        fresh(*args)
+    assert [t.data_ptr() for t in _copies(m)] == ptrs
+    for kept, new in zip(_copies(m), _copies(fresh)):
+        assert torch.equal(kept, new)
 
 
 def test_a_pack_of_weights_changed_in_place_leaves_the_cache():
-    """A training run's frozen-call packs: each in-place update (an EMA
-    step) gives one new pack and drops the one it outdated."""
+    """A training run's frozen-call copies: each in-place update (an EMA
+    step) makes each module's copies anew in place, so a module holds one
+    set, at the same addresses, however many updates it sees."""
     m = _model(5, 256)
     args = _inputs(256)
-    attention._PACKS.clear()
     with torch.no_grad():
+        m(*args)
+        ptrs = [t.data_ptr() for t in _copies(m)]
         for _ in range(3):
-            m(*args)
-            assert len(attention._PACKS) == 6
             for p in m.parameters():
                 p.mul_(0.99)
+            m(*args)
+            assert [t.data_ptr() for t in _copies(m)] == ptrs
 
 
 def test_a_frozen_shadow_reads_its_ema_update(monkeypatch):
@@ -389,5 +409,4 @@ def test_a_frozen_shadow_reads_its_ema_update(monkeypatch):
         target(*args)
         ema_update(target, student, 0.5)
         got = target(*args)
-        attention._PACKS.clear()
-        assert torch.equal(got, target(*args))
+        assert torch.equal(got, copy.deepcopy(target)(*args))  # copies made from scratch
