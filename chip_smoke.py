@@ -28,9 +28,12 @@ JSON lines:
            CUDA-event times of the kernel, the plain version,
            one PyTorch library call computing the same function (SDPA for
            attention; none for the MRF level) and the bound (the larger of
-           bytes over 3.35 TB/s and operations over 989 TFLOP/s). The MRF
-           level also runs at the C = 256 and 512 levels of batch 32, which
-           the generate path leaves to the plain chain. The STFT
+           bytes over 3.35 TB/s and operations over 989 TFLOP/s). K3 also
+           runs at the C = 256 and 512 levels of batch 32, which the
+           generate path gives to K7 (csrc/conv_nlc.cu, one launch a conv);
+           K7 runs there and at C = 512 at batch 1, against the planted
+           faults of tools/mrf_cases.py (dilations reversed, a bias
+           dropped, slope 0.2, a tap's row off by one). The STFT
            magnitude (float32, B = 8, 2 and 32 ten-second clips) is held to
            float32 grade, 1e-5 of the largest output, against planted
            single-pass bf16 and TF32 products, zero padding and a dropped
@@ -275,6 +278,8 @@ SERVE_PLACES = ["", " nearby", " far away", " at night"]
 
 
 NORM_COUNTERS = ("group_norm", "layer_norm", "rms_norm")  # ops/norm.py's launch counters
+MRF_LEVELS = 5  # the vocoder's MRF levels (len(HiFiGANConfig().upsample_rates))
+WIDE_LEVEL_LAUNCHES = 20  # K7 at a level wider than K3's: 18 convs, two layout passes
 
 
 class NormCalls:
@@ -330,6 +335,13 @@ class NormCalls:
 
 
 NORMS = NormCalls()
+
+
+def mrf_launches(vocoder_calls: int, fused_levels: int) -> dict:
+    """K3's and K7's launches in `vocoder_calls` vocoder calls: one at each of
+    the `fused_levels` narrowest levels, WIDE_LEVEL_LAUNCHES at each wider."""
+    return {"fused_mrf_level": vocoder_calls * fused_levels,
+            "wide_mrf_level": vocoder_calls * (MRF_LEVELS - fused_levels) * WIDE_LEVEL_LAUNCHES}
 
 
 def with_norms(expected: dict) -> dict:
@@ -418,7 +430,7 @@ def serve_phase(torch, config, serve_dir, reset_counters, read_counters, fused_l
     out = os.path.join(serve_dir, "stage2")
     queries = 1 + 2 * SERVE_TEACHER_STEPS - 1
     expected = {"flash_mha_packed": 16 * queries, "flash_self_attention": 2,
-                "fused_mrf_level": 2 * fused_levels, "stft_magnitude": 1, "dilated_conv1d": 0}
+                **mrf_launches(2, fused_levels), "stft_magnitude": 1, "dilated_conv1d": 0}
     res2, wall2, counts2 = run(["--use_edm", "--use_ema", "--query_teacher", "--num_teacher_steps",
                                 str(SERVE_TEACHER_STEPS), "--skip_eval", "--output_dir", out],
                                expected)
@@ -446,7 +458,7 @@ def serve_phase(torch, config, serve_dir, reset_counters, read_counters, fused_l
     eval_ckpt_s = time.perf_counter() - t0
     out1 = os.path.join(serve_dir, "stage1")
     expected1 = {"flash_mha_packed": 16 * SERVE_STAGE1_STEPS, "flash_self_attention": 1,
-                 "fused_mrf_level": fused_levels, "stft_magnitude": 2, "dilated_conv1d": 0}
+                 **mrf_launches(1, fused_levels), "stft_magnitude": 2, "dilated_conv1d": 0}
     cwd = os.getcwd()
     os.chdir(serve_dir)
     try:
@@ -717,7 +729,7 @@ def eval_phase(torch, ctx, reset_counters, read_counters):
         # the references' (one length, at most MEL_BATCH rows a launch)
         batches = -(-len(names) // MEL_BATCH)
         expected = with_norms({"flash_mha_packed": 0, "flash_self_attention": 0,
-                               "fused_mrf_level": 0, "stft_magnitude": 2 * batches,
+                               **mrf_launches(0, 0), "stft_magnitude": 2 * batches,
                                "dilated_conv1d": 0})
         if counts != expected:
             fail(f"eval: launch counts {counts} != expected {expected}")
@@ -862,7 +874,7 @@ def fit_expected(stage, use_edm, accum, steps, val_batches, n=HEUN_STEPS, remat=
     decoder, vocoder = LOSS_DECODES[loss]
     return {"flash_mha_packed": 16 * (micro * per_micro + val_batches * per_val),
             "flash_self_attention": micro * (1 + decoder) + val_batches * (1 + 2 * ftvae),
-            "fused_mrf_level": micro * vocoder * fused_levels,
+            **mrf_launches(micro * vocoder, fused_levels),
             "stft_magnitude": micro + val_batches * (1 + ftvae), "dilated_conv1d": 0}
 
 
@@ -1178,7 +1190,7 @@ def inference_run(torch, phase, model, replay, vae, test, out_dir, fused_levels,
     infer_s = time.perf_counter() - t0
     counts = read_counters()
     expected = with_norms({"flash_mha_packed": 16, "flash_self_attention": 1,
-                           "fused_mrf_level": fused_levels, "stft_magnitude": 1,
+                           **mrf_launches(1, fused_levels), "stft_magnitude": 1,
                            "dilated_conv1d": 0})
     wavs = sorted(n for n in os.listdir(out_dir) if n.endswith(".wav"))
     for n in wavs:
@@ -1538,7 +1550,8 @@ def ddp_rank(mesh, config, out_pattern):
 
     counters = {"flash_mha_packed": att.flash_mha_packed,
                 "flash_self_attention": att.flash_self_attention,
-                "fused_mrf_level": mrf.fused_mrf_level, "stft_magnitude": stft.stft_magnitude_cuda,
+                "fused_mrf_level": mrf.fused_mrf_level, "wide_mrf_level": mrf.wide_mrf_level,
+                "stft_magnitude": stft.stft_magnitude_cuda,
                 "dilated_conv1d": dconv.dilated_conv1d,
                 **{k: getattr(norm, k) for k in NORM_COUNTERS}}
     NORMS.install()
@@ -1668,7 +1681,7 @@ def ddp_phase(torch, config, dev, out_dir):
         merged[fault] = readings
     sound = merged["sound"]
     expected = {"flash_mha_packed": 16 * 4 * DDP_STEPS, "flash_self_attention": DDP_STEPS,
-                "fused_mrf_level": 0, "stft_magnitude": DDP_STEPS, "dilated_conv1d": 0}
+                **mrf_launches(0, 0), "stft_magnitude": DDP_STEPS, "dilated_conv1d": 0}
     per_rank = [{"launches": r["sound"]["launches"],
                  "expected_launches": {**expected, **r["sound"]["norm_implied"]},
                  "peak_memory_gb": r["sound"]["peak_memory_gb"],
@@ -1727,7 +1740,7 @@ def profile_phase(torch, pipe, fused_levels, norm_per_call, reset_counters, read
     calls, which replay the stages' CUDA graphs, then one traced 1-NFE
     generate call at batch 32 (after a warm-up call), both eager, read by
     utils.read_trace: the card's busy share, the top kernels, the longest
-    idle gaps. K1-K3 must be in the trace with the launches one call makes,
+    idle gaps. K1-K3 and K7 must be in the trace with the launches one call makes,
     the counters must show the launches the phase's calls imply (a replay
     counts what it launched), and the graph counters that every timed call
     of a stage was a capture or a replay and every traced one eager;
@@ -1756,9 +1769,10 @@ def profile_phase(torch, pipe, fused_levels, norm_per_call, reset_counters, read
     # profile's warm-up and traced one
     calls = 1 + ps.ITERS + 2
     expected = {"flash_mha_packed": 16 * calls, "flash_self_attention": calls,
-                "fused_mrf_level": fused_levels * calls, "stft_magnitude": 0,
+                **mrf_launches(calls, fused_levels), "stft_magnitude": 0,
                 "dilated_conv1d": 0, **{k: n * calls for k, n in norm_per_call.items()}}
-    in_trace = {"K1": 16, "K2": 1, "K3": fused_levels}
+    in_trace = {"K1": 16, "K2": 1, "K3": fused_levels,
+                "K7": mrf_launches(1, fused_levels)["wide_mrf_level"]}
     line = {
         "phase": "profile", "batch": s.z.shape[0], "stages_ms": stages,
         "busy_share": profile["busy_share"], "window_ms": profile["window_ms"],
@@ -1807,7 +1821,7 @@ def bench_phase(torch, fused_levels, reset_counters, read_counters, smi):
     calls = student + 1 + bench.TEACHER_ITERS["cuda"]  # each call decodes once
     expected = with_norms({"flash_mha_packed": 16 * (student + teacher),
                            "flash_self_attention": calls,
-                           "fused_mrf_level": fused_levels * calls, "stft_magnitude": 0,
+                           **mrf_launches(calls, fused_levels), "stft_magnitude": 0,
                            "dilated_conv1d": 0})
     numbers = [line[k] for k in ("value", "vs_baseline", "device_ms_per_call",
                                  "teacher_clips_per_sec")]
@@ -1846,6 +1860,7 @@ def main() -> None:
         from consistencytta_torch.ops import mrf, norm, schedulers, stft
         from consistencytta_torch.ops._packs import Pack
         from consistencytta_torch.text.tokenizer import HashTokenizer, tokenize_with_uncond
+        from consistencytta_torch.tools import mrf_cases as mc
         from consistencytta_torch.training import step as tstep
         from consistencytta_torch.training.optim import OptimizerConfig
     except ImportError as e:
@@ -1879,6 +1894,7 @@ def main() -> None:
         "stft_ptxas": _build.resources("stft"),
         "dilated_conv_ptxas": _build.resources("dilated_conv"),
         "norm_ptxas": _build.resources("norm"),
+        "conv_nlc_ptxas": _build.resources("conv_nlc"),
     })
 
     # -- kernels against their plain versions ---------------------------------
@@ -1959,11 +1975,11 @@ def main() -> None:
             fail(f"{name} {check}: the tolerance passes planted faults {caught}")
         grad_errors[name] = max(grad_errors.get(name, 0.0), err)
 
-    def launch(kernel, call):
-        """call() once, checking that it launched `kernel` exactly once."""
+    def launch(kernel, call, n=1):
+        """call() once, checking that it launched `kernel` exactly n times."""
         before = kernel.launches
         out = call()
-        if kernel.launches != before + 1:
+        if kernel.launches != before + n:
             fail(f"{kernel.__name__} did not launch its kernel")
         return out
 
@@ -2117,14 +2133,11 @@ def main() -> None:
     # dilated convs (direct, and split into phases); plain_ms is the faster of
     # the two at each shape. weight_l2_gb: the weight units the kernel
     # streams from L2 at the shape (every unit once per tile).
-    ks, ds = (3, 7, 11), ((1, 3, 5),) * 3
+    ks, ds = mc.KS, mc.DS
     for c, length, b in ((128, 40968, BATCH), (64, 81936, BATCH), (32, 163872, BATCH),
                          (256, 20484, BATCH), (512, 5121, BATCH), (512, 2048, 2)):
         per_call = int(c <= FUSE_MAX_CHANNELS and b == BATCH)
-        x = (torch.randn(b, c, length, device=dev, generator=gen) * 0.5).bfloat16()
-        ws = [(torch.randn(c, c, kk, device=dev, generator=gen) / (c * kk) ** 0.5).bfloat16()
-              for kk in ks for _ in range(6)]
-        bs = [(torch.randn(c, device=dev, generator=gen) * 0.05).bfloat16() for _ in range(18)]
+        x, ws, bs = mc.inputs(gen, b, c, length)
         pack = Pack()  # the kernel's weight layout, made once as the vocoder keeps it
         kern = lambda: mrf.fused_mrf_level(x, ws, bs, ks, ds, 0.1, pack)
         direct = lambda: mrf.mrf_level_plain(x, ws, bs, ks, ds, 0.1)
@@ -2156,10 +2169,7 @@ def main() -> None:
     # level. The faults: the plain gradient with the slope 0.2 in place of
     # 0.1, and with the first ResBlock's dilations reversed.
     b, c, length = STAGE3_BATCH, 128, 40968
-    x = (torch.randn(b, c, length, device=dev, generator=gen) * 0.5).bfloat16()
-    ws = [(torch.randn(c, c, kk, device=dev, generator=gen) / (c * kk) ** 0.5).bfloat16()
-          for kk in ks for _ in range(6)]
-    bs = [(torch.randn(c, device=dev, generator=gen) * 0.05).bfloat16() for _ in range(18)]
+    x, ws, bs = mc.inputs(gen, b, c, length)
     g_out = torch.randn(b, c, length, device=dev, generator=gen).bfloat16()
 
     def mrf_grad(fn, dil=ds, slope=0.1):
@@ -2173,6 +2183,30 @@ def main() -> None:
         "dilations_reversed": mrf_grad(mrf.mrf_level_plain, dil=((5, 3, 1),) + ds[1:])},
         "gradient wrt x")
     del x, ws, bs, g_out, got, want
+    # K7: the MRF levels wider than FUSE_MAX_CHANNELS (C = 512, 256), once per
+    # generate call at batch 32 (WIDE_LEVEL_LAUNCHES a level), beside the plain
+    # chain (plain_ms: the faster of its direct and phase-split dilated convs);
+    # every planted fault of tools/mrf_cases.py must fail the tolerance. At
+    # batch 1 (tiles of 128 channels at C = 512) for the check alone.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for c, length, b in ((512, 5121, BATCH), (256, 20484, BATCH), (512, 5121, 1)):
+        x, ws, bs = mc.inputs(gen, b, c, length)
+        pack = Pack()  # the kernel's weight layout, made once as the vocoder keeps it
+        kern = lambda: mrf.wide_mrf_level(x, ws, bs, ks, ds, 0.1, pack)
+        direct = lambda: mrf.mrf_level_plain(x, ws, bs, ks, ds, 0.1)
+        split = lambda: mrf.mrf_level_plain(x, ws, bs, ks, ds, 0.1, phase_split=True)
+        got, want = launch(mrf.wide_mrf_level, kern, WIDE_LEVEL_LAUNCHES), direct()
+        mutants = {f: mc.fault(x, ws, bs, f) for f in mc.FAULTS}
+        direct_ms, split_ms = cuda_ms(torch, direct, 2), cuda_ms(torch, split, 2)
+        wbytes = sum(w.numel() * 2 for w in ws) + 18 * c * 2
+        on_path = b == BATCH
+        record("wide_mrf_level", f"B={b} C={c} L={length}", got, want, mc.TOL_MAX, mutants,
+               cuda_ms(torch, kern, 2), min(direct_ms, split_ms), None,
+               float(mrf.mrf_flops(b, c, length, ks, ds)), 2.0 * x.numel() * 2 + wbytes,
+               WIDE_LEVEL_LAUNCHES if on_path else 0, weight=int(on_path),
+               plain_direct_ms=direct_ms, plain_phase_split_ms=split_ms,
+               tile_n=mrf.wide_tile_n(c, b, length, sms))
+        del x, ws, bs, got, want, mutants
     # K4: the mel frontend's STFT magnitude on 10-s clips, float32 in and out;
     # once per train micro-batch (B = 8). The plain version is one float32
     # matmul with TF32 off; the faults are that product in one low-precision
@@ -2378,7 +2412,7 @@ def main() -> None:
 
     counters = {"flash_mha_packed": att.flash_mha_packed,
                 "flash_self_attention": att.flash_self_attention,
-                "fused_mrf_level": mrf.fused_mrf_level,
+                "fused_mrf_level": mrf.fused_mrf_level, "wide_mrf_level": mrf.wide_mrf_level,
                 "stft_magnitude": stft.stft_magnitude_cuda,
                 "dilated_conv1d": dconv.dilated_conv1d,
                 **{k: getattr(norm, k) for k in NORM_COUNTERS}}
@@ -2418,10 +2452,12 @@ def main() -> None:
     wav32 = wav
     launches = read_counters()
     voc = config.vocoder
+    if len(voc.upsample_rates) != MRF_LEVELS:
+        fail(f"the vocoder has {len(voc.upsample_rates)} MRF levels, the tables {MRF_LEVELS}")
     fused_levels = sum(voc.upsample_initial_channel // 2 ** (i + 1) <= FUSE_MAX_CHANNELS
                        for i in range(len(voc.upsample_rates)))
     expected = {"flash_mha_packed": 16 * calls, "flash_self_attention": calls,
-                "fused_mrf_level": fused_levels * calls, "stft_magnitude": 0, "dilated_conv1d": 0,
+                **mrf_launches(calls, fused_levels), "stft_magnitude": 0, "dilated_conv1d": 0,
                 **{k: n * calls for k, n in norm_per_call.items()}}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     if launches != expected:
@@ -2569,7 +2605,7 @@ def main() -> None:
     unet_queries = n_train_steps * 4 + (4 + 2 * (HEUN_STEPS - 2) + 1)
     calls_t = n_train_steps + 1
     train_expected = with_norms({"flash_mha_packed": 16 * unet_queries,
-                                 "flash_self_attention": calls_t, "fused_mrf_level": 0,
+                                 "flash_self_attention": calls_t, **mrf_launches(0, 0),
                                  "stft_magnitude": calls_t, "dilated_conv1d": 0})
     if train_launches != train_expected:
         fail(f"train launch counts {train_launches} != expected {train_expected}")
@@ -2717,6 +2753,9 @@ def main() -> None:
                                  "consistencytta_tpu/ops/pallas_attention.py:420"),
         "fused_mrf_level": ("consistencytta_torch/csrc/mrf.cu",
                             "consistencytta_tpu/ops/pallas_mrf.py:508"),
+        "wide_mrf_level": ("consistencytta_torch/csrc/conv_nlc.cu",
+                           "none: consistencytta_tpu/nn/hifigan.py runs the wide levels as "
+                           "plain ResBlocks"),
         "stft_magnitude": ("consistencytta_torch/csrc/stft.cu",
                            "consistencytta_tpu/ops/pallas_stft.py:89"),
         "stft_magnitude_n512": ("consistencytta_torch/csrc/stft.cu",

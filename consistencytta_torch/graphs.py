@@ -185,8 +185,8 @@ def _launch_counters() -> tuple:
         from consistencytta_torch.ops import attention, dilated_conv, mrf, norm, stft
 
         _counters = (attention.flash_mha_packed, attention.flash_self_attention,
-                     mrf.fused_mrf_level, stft.stft_magnitude_cuda, dilated_conv.dilated_conv1d,
-                     norm.group_norm, norm.layer_norm, norm.rms_norm)
+                     mrf.fused_mrf_level, mrf.wide_mrf_level, stft.stft_magnitude_cuda,
+                     dilated_conv.dilated_conv1d, norm.group_norm, norm.layer_norm, norm.rms_norm)
     return _counters
 
 

@@ -5,9 +5,10 @@
 conv_pre (k7) -> per upsample level: leaky_relu(0.1) -> ConvTranspose1d ->
 the MRF level (3 multi-dilation ResBlocks, averaged) -> leaky_relu (default
 slope 0.01) -> conv_post -> tanh. The MRF levels of width <= 128 go through
-`ops.mrf.fused_mrf_level` (kernel K3 on the card); the wider levels run
-the plain chain of convolutions, its dilated convs split into phases. A
-frozen inference call replays a CUDA graph (graphs.py).
+`ops.mrf.fused_mrf_level` (kernel K3 on the card: the whole level in one
+launch), the wider ones through `ops.mrf.wide_mrf_level` (kernel K7: one
+channels-last implicit-GEMM launch a conv); both run the plain chain on the
+CPU. A frozen inference call replays a CUDA graph (graphs.py).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from torch import nn
 from consistencytta_torch import graphs
 from consistencytta_torch.configs import HiFiGANConfig
 from consistencytta_torch.ops._packs import Pack
-from consistencytta_torch.ops.mrf import fused_mrf_level, mrf_level_plain
+from consistencytta_torch.ops.mrf import fused_mrf_level, wide_mrf_level
 from consistencytta_torch.utils import span
 
 FUSE_MAX_CHANNELS = 128
@@ -70,7 +71,7 @@ class HiFiGANGenerator(nn.Module):
             for rk, rd in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
                 self.resblocks.append(ResBlock(ch, rk, rd))
         self.conv_post = nn.Conv1d(c0 // (2 ** len(cfg.upsample_rates)), 1, 7, padding=3)
-        self.level_packs = [Pack() for _ in self.ups]  # K3's weight layout, a level
+        self.level_packs = [Pack() for _ in self.ups]  # K3's or K7's weight layout, a level
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         return graphs.run(self, "vocoder", self._forward, mel)
@@ -90,10 +91,8 @@ class HiFiGANGenerator(nn.Module):
                 ws += w
                 bs += b
             with span("mrf"):
-                if x.shape[1] <= FUSE_MAX_CHANNELS:
-                    x = fused_mrf_level(x, ws, bs, ks, ds, cfg.lrelu_slope, self.level_packs[i])
-                else:
-                    x = mrf_level_plain(x, ws, bs, ks, ds, cfg.lrelu_slope, phase_split=True)
+                level = fused_mrf_level if x.shape[1] <= FUSE_MAX_CHANNELS else wide_mrf_level
+                x = level(x, ws, bs, ks, ds, cfg.lrelu_slope, self.level_packs[i])
         x = F.leaky_relu(x)  # default slope 0.01
         x = torch.tanh(self.conv_post(x))
         return x.reshape(x.shape[0], -1)

@@ -1,22 +1,27 @@
-"""Fused HiFi-GAN MRF level: kernel K3 with its plain version.
+"""HiFi-GAN MRF level: kernels K3 and K7 with their plain version.
 
 One upsample level of the vocoder runs x [B, C, L] through three
-multi-dilation ResBlocks and averages them. `fused_mrf_level` takes the 18
-conv weights in chain order (resblock-major; per dilation, the dilated conv
-then the d=1 conv) in torch Conv1d layout [C_out, C_in, k], and their
-biases. On a CUDA tensor it launches `csrc/mrf.cu` (bf16; C 32, 64 or a
-multiple of 128; three ResBlocks of three dilations) and raises on
-anything else; on a CPU tensor it runs `mrf_level_plain`. The backward
+multi-dilation ResBlocks and averages them. `fused_mrf_level` and
+`wide_mrf_level` take the 18 conv weights in chain order (resblock-major;
+per dilation, the dilated conv then the d=1 conv) in torch Conv1d layout
+[C_out, C_in, k], and their biases. On a CPU tensor both run
+`mrf_level_plain`. On a CUDA tensor `fused_mrf_level` launches K3
+(`csrc/mrf.cu`: the whole level in one launch; bf16; C 32, 64 or a multiple
+of 128; three ResBlocks of three dilations) and `wide_mrf_level` launches
+K7 (`csrc/conv_nlc.cu`: one channels-last implicit-GEMM launch a conv, the
+level's elementwise work in its epilogue; bf16; C a multiple of 64 above
+128; odd kernel sizes); each raises on anything else. The backward
 differentiates the plain chain, as the JAX package's custom VJP does.
 
-The kernel takes the weights packed K-major (`pack_weights`), kept in the
-caller's `ops._packs.Pack` (one a level: `HiFiGANGenerator` holds them).
+Each kernel takes the weights in a layout of its own (`pack_weights`,
+`pack_nlc_weights`), kept in the caller's `ops._packs.Pack` (one a level:
+`HiFiGANGenerator` holds them).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -194,13 +199,16 @@ def _mrf_cuda(x, weights, biases, kernel_sizes, dilations, slope, out=None,
     return y
 
 
-class _FusedMrf(torch.autograd.Function):
+class _MrfLevel(torch.autograd.Function):
+    """A level on the card (`run`: `_mrf_cuda` or `_wide_cuda`), its backward
+    autograd through the plain chain."""
+
     @staticmethod
-    def forward(ctx, x, kernel_sizes, dilations, slope, pack, *params):
+    def forward(ctx, x, run, kernel_sizes, dilations, slope, pack, *params):
         ctx.save_for_backward(x, *params)
         ctx.cfg = (kernel_sizes, dilations, slope)
         n = len(params) // 2
-        return _mrf_cuda(x, params[:n], params[n:], kernel_sizes, dilations, slope, pack=pack)
+        return run(x, params[:n], params[n:], kernel_sizes, dilations, slope, pack=pack)
 
     @staticmethod
     def backward(ctx, g):
@@ -209,14 +217,14 @@ class _FusedMrf(torch.autograd.Function):
         x, *params = ctx.saved_tensors
         kernel_sizes, dilations, slope = ctx.cfg
         n = len(params) // 2
-        needs = (ctx.needs_input_grad[0], *ctx.needs_input_grad[5:])
+        needs = (ctx.needs_input_grad[0], *ctx.needs_input_grad[6:])
         with torch.enable_grad():
             xs = [t.detach().requires_grad_(need) for t, need in zip((x, *params), needs)]
             out = mrf_level_plain(xs[0], xs[1:1 + n], xs[1 + n:],
                                   kernel_sizes, dilations, slope)
             found = iter(torch.autograd.grad(out, [t for t in xs if t.requires_grad], g))
         grads = [next(found) if need else None for need in needs]
-        return (grads[0], None, None, None, None, *grads[1:])
+        return (grads[0], None, None, None, None, None, *grads[1:])
 
 
 def fused_mrf_level(
@@ -234,11 +242,150 @@ def fused_mrf_level(
     kernel_sizes = tuple(kernel_sizes)
     dilations = tuple(tuple(d) for d in dilations)
     if x.is_cuda:
-        return _FusedMrf.apply(x, kernel_sizes, dilations, slope, pack, *weights, *biases)
+        return _MrfLevel.apply(x, _mrf_cuda, kernel_sizes, dilations, slope, pack,
+                               *weights, *biases)
     return mrf_level_plain(x, weights, biases, kernel_sizes, dilations, slope)
 
 
 fused_mrf_level.launches = 0
+
+
+# -- K7: the wide levels, one channels-last implicit-GEMM launch a conv -------
+
+WIDE_LAUNCH_NAME = "ctta_conv_nlc"  # in the name of each of K7's kernels, and no other's
+WIDE_TILE_M = 128  # positions of a K7 tile (csrc/conv_nlc.cu BM)
+
+
+def wide_tile_n(c: int, b: int, length: int, sms: int) -> int:
+    """Output channels of a K7 tile: the widest of 256, 128 and 64 that
+    divides C and still gives every SM a tile, else the narrowest that divides
+    C (batch 1 at C = 512 takes 128: 164 tiles rather than 82)."""
+    fits = [n for n in (256, 128, 64) if c % n == 0]
+    m_tiles = b * -(-length // WIDE_TILE_M)
+    return next((n for n in fits if m_tiles * (c // n) >= sms), fits[-1])
+
+
+def pack_nlc_weights(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The convs as K7 reads them: one flat bf16 tensor holding, back to back,
+    each conv's [C_out, k * C_in] with tap t, input channel c_in at column
+    t * C + c_in; and the biases [n, C] in float32, of the bf16 values that
+    the plain chain adds."""
+    w = torch.cat([w.detach().to(torch.bfloat16).permute(0, 2, 1).reshape(-1) for w in weights])
+    b = torch.stack([b.detach().to(torch.bfloat16).float() for b in biases])
+    return w.contiguous(), b.contiguous()
+
+
+class WideStep(NamedTuple):
+    """One conv launch of a K7 level: conv `conv` of the chain at (k, d),
+    reading buffer `src`; t = (conv + bias + `res` + `total`) * `scale`;
+    y0 = lrelu(t) if `act0` else t, and y1 = lrelu(t) where named. Buffers
+    are [B, L, C]: "xt" (x), "u0" (lrelu(x)), "u", "v", "xb", "acc"."""
+
+    conv: int
+    k: int
+    d: int
+    src: str
+    y0: str
+    y1: Optional[str] = None
+    res: Optional[str] = None
+    total: Optional[str] = None
+    act0: bool = False
+    scale: float = 1.0
+
+
+def wide_plan(kernel_sizes, dilations) -> List[WideStep]:
+    """K7's conv launches for a level, in order. Per dilation pair of a
+    ResBlock: v = lrelu(conv1(u) + b); then xb' = xb + conv2(v) + b with
+    u' = lrelu(xb'), or at the ResBlock's last pair xb' into the running sum
+    "acc", which the last ResBlock's turns into the mean, written to "u"
+    (free by then). A ResBlock's first pair reads u0 and adds xt."""
+    steps, i, n = [], 0, len(kernel_sizes)
+    for r, (k, ds) in enumerate(zip(kernel_sizes, dilations)):
+        for p, d in enumerate(ds):
+            steps.append(WideStep(i, k, d, "u0" if p == 0 else "u", "v", act0=True))
+            res = "xt" if p == 0 else "xb"
+            total = "acc" if r else None
+            if p < len(ds) - 1:
+                steps.append(WideStep(i + 1, k, 1, "v", "xb", "u", res))
+            elif r < n - 1:
+                steps.append(WideStep(i + 1, k, 1, "v", "acc", None, res, total))
+            else:
+                steps.append(WideStep(i + 1, k, 1, "v", "u", None, res, total, scale=1.0 / n))
+            i += 2
+    return steps
+
+
+def _wide_cuda(x, weights, biases, kernel_sizes, dilations, slope, pack: Optional[Pack] = None):
+    """Run a level on K7: x to [B, L, C] with lrelu(x) beside it, the
+    `wide_plan` launches (the module note of csrc/conv_nlc.cu), the mean back
+    to [B, C, L]."""
+    b, c, length = x.shape
+    if x.dtype != torch.bfloat16:
+        raise TypeError("wide_mrf_level: the kernel takes bfloat16 x")
+    if c <= 128 or c % 64:
+        raise ValueError(f"wide_mrf_level: C must be a multiple of 64 above 128, got {c}")
+    if any(k % 2 == 0 for k in kernel_sizes):
+        raise ValueError("wide_mrf_level: the kernel takes odd kernel sizes")
+    plan = wide_plan(kernel_sizes, dilations)
+    if len(weights) != len(plan) or len(biases) != len(plan):
+        raise ValueError(f"wide_mrf_level: {len(plan)} weights and biases expected")
+    for step in plan:
+        w = weights[step.conv]
+        if tuple(w.shape) != (c, c, step.k) or w.device != x.device:
+            raise ValueError(f"wide_mrf_level: weight {step.conv} has shape {tuple(w.shape)}")
+    x = x.contiguous()
+    make = lambda: pack_nlc_weights(weights, biases)
+    w_flat, b_flat = make() if pack is None else pack.get((*weights, *biases), make)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    bn = wide_tile_n(c, b, length, sms)
+    bufs = {name: torch.empty(b, length, c, dtype=torch.bfloat16, device=x.device)
+            for name in ("xt", "u0", "u", "v", "xb", "acc")}
+    ptr = lambda name: ctypes.c_void_p(None if name is None else bufs[name].data_ptr())
+    lib = _build.load("conv_nlc")
+    stream = _build.stream_ptr(x.device)
+    layout, conv = lib.conv_nlc_layout, lib.conv_nlc_fwd
+    layout.restype = conv.restype = ctypes.c_int
+    dims = ctypes.c_int(b), ctypes.c_int(c), ctypes.c_int(length)
+    _build.check(layout(ctypes.c_void_p(x.data_ptr()), ptr("xt"), ptr("u0"), *dims,
+                        ctypes.c_int(1), ctypes.c_float(slope), stream), "wide_mrf_level")
+    w_off = 0
+    for s in plan:
+        _build.check(conv(
+            ptr(s.src), ctypes.c_void_p(w_flat.data_ptr() + 2 * w_off),
+            ctypes.c_void_p(b_flat.data_ptr() + 4 * s.conv * c), ptr(s.res), ptr(s.total),
+            ptr(s.y0), ptr(s.y1), ctypes.c_int(b), ctypes.c_int(length), ctypes.c_int(c),
+            ctypes.c_int(s.k), ctypes.c_int(s.d), ctypes.c_int(bn), ctypes.c_int(s.act0),
+            ctypes.c_float(s.scale), ctypes.c_float(slope), stream), "wide_mrf_level")
+        w_off += c * s.k * c
+    y = torch.empty_like(x)
+    _build.check(layout(ptr("u"), ctypes.c_void_p(y.data_ptr()), None, *dims, ctypes.c_int(0),
+                        ctypes.c_float(slope), stream), "wide_mrf_level")
+    wide_mrf_level.launches += len(plan) + 2
+    return y
+
+
+def wide_mrf_level(
+    x: torch.Tensor,
+    weights: Sequence[torch.Tensor],
+    biases: Sequence[torch.Tensor],
+    kernel_sizes: Sequence[int],
+    dilations: Sequence[Sequence[int]],
+    slope: float,
+    pack: Optional[Pack] = None,
+) -> torch.Tensor:
+    """K7: one MRF level of more than 128 channels, x [B, C, L] -> [B, C, L],
+    in 2 + 18 launches (the layout passes and one a conv; `launches` counts
+    them all). The kernel's weight layout is kept in `pack`, as for K3."""
+    kernel_sizes = tuple(kernel_sizes)
+    dilations = tuple(tuple(d) for d in dilations)
+    if x.is_cuda:
+        return _MrfLevel.apply(x, _wide_cuda, kernel_sizes, dilations, slope, pack,
+                               *weights, *biases)
+    return mrf_level_plain(x, weights, biases, kernel_sizes, dilations, slope)
+
+
+wide_mrf_level.launches = 0
 
 
 def mrf_flops(b: int, c: int, length: int, kernel_sizes, dilations) -> int:

@@ -1,12 +1,14 @@
-"""Device times of the fused MRF level (K3) and the STFT magnitude (K4) beside
-their plain versions and library calls, on the card.
+"""Device times of the MRF levels (K3, and K7 at the wide levels) and the STFT
+magnitude (K4) beside their plain versions and library calls, on the card.
 
     python3 -m consistencytta_torch.tools.mrf_stft_bench [--flags="-D..."] [--check]
     python3 -m consistencytta_torch.tools.mrf_stft_bench --l2-bytes   (no card needed)
 
-K3 at the vocoder's five levels at batch 32 (C = 128, 64, 32 fused on the
-generate path; C = 256 and 512 on the plain chain), beside the plain chain
-with direct and with phase-split dilated convs; K4 at batch 1, 8 and 32 on
+K3 at the vocoder's five levels at batch 32 (C = 128, 64, 32 on the generate
+path; C = 256 and 512, which the path gives to K7), beside the plain chain
+with direct and with phase-split dilated convs (the wide levels' path until
+K7); K7 (`wide_mrf_level`) at C = 512 and 256 beside the same two, with the
+level's bound (its operations at 989 TFLOP/s); K4 at batch 1, 8 and 32 on
 10-s clips beside `torch.stft` + `abs`. Times are CUDA events around calls
 queued behind a spin kernel (`attention_bench.device_ms`), so the card never
 waits for the host; the host time of one K4 launch is printed too. With
@@ -30,18 +32,11 @@ import torch
 from consistencytta_torch.configs import STFTConfig
 from consistencytta_torch.ops import _build, mrf, stft
 from consistencytta_torch.ops._packs import Pack
+from consistencytta_torch.tools import mrf_cases
 from consistencytta_torch.tools.attention_bench import device_ms, host_us
 
 KS, DS = (3, 7, 11), ((1, 3, 5),) * 3
 LEVELS = ((128, 40968), (64, 81936), (32, 163872), (256, 20484), (512, 5121))
-
-
-def mrf_inputs(gen, b, c, length):
-    x = (torch.randn(b, c, length, device="cuda", generator=gen) * 0.5).bfloat16()
-    ws = [(torch.randn(c, c, k, device="cuda", generator=gen) / (c * k) ** 0.5).bfloat16()
-          for k in KS for _ in range(6)]
-    bs = [(torch.randn(c, device="cuda", generator=gen) * 0.05).bfloat16() for _ in range(18)]
-    return x, ws, bs
 
 
 def pr3_weight_l2_bytes(b: int, c: int, length: int) -> int:
@@ -87,9 +82,15 @@ def main() -> None:
     if args.check:
         for b, c, length in ((1, 32, 97), (2, 32, 1500), (1, 64, 1500), (2, 128, 1500),
                              (1, 128, 2003), (2, 256, 700), (2, 512, 300)):
-            x, ws, bs = mrf_inputs(gen, b, c, length)
+            x, ws, bs = mrf_cases.inputs(gen, b, c, length)
             got = mrf.fused_mrf_level(x, ws, bs, KS, DS, 0.1)
             print(json.dumps({"check": "fused_mrf_level", "B": b, "C": c, "L": length,
+                              **errors(got, mrf.mrf_level_plain(x, ws, bs, KS, DS, 0.1))}),
+                  flush=True)
+        for b, c, length in ((1, 256, 97), (2, 256, 1500), (1, 512, 5121), (2, 192, 333)):
+            x, ws, bs = mrf_cases.inputs(gen, b, c, length)
+            got = mrf.wide_mrf_level(x, ws, bs, KS, DS, 0.1)
+            print(json.dumps({"check": "wide_mrf_level", "B": b, "C": c, "L": length,
                               **errors(got, mrf.mrf_level_plain(x, ws, bs, KS, DS, 0.1))}),
                   flush=True)
         for b, t in ((1, 513), (2, 32007)):
@@ -98,7 +99,7 @@ def main() -> None:
             print(json.dumps({"check": "stft_magnitude", "B": b, "T": t,
                               **errors(fe.magnitude(wav), want)}), flush=True)
     for c, length in LEVELS:
-        x, ws, bs = mrf_inputs(gen, 32, c, length)
+        x, ws, bs = mrf_cases.inputs(gen, 32, c, length)
         pack = Pack()  # the kernel's weight layout, made once as the vocoder keeps it
         kern = lambda: mrf.fused_mrf_level(x, ws, bs, KS, DS, 0.1, pack)
         print(json.dumps({
@@ -109,6 +110,21 @@ def main() -> None:
                 lambda: mrf.mrf_level_plain(x, ws, bs, KS, DS, 0.1, phase_split=True), 1),
             "tile": mrf.tile_plan(c, length, KS, DS)[0],
             "weight_l2_gb": mrf.weight_l2_bytes(32, c, length, KS, DS) / 1e9}), flush=True)
+        del x, ws, bs
+    for c, length in LEVELS[4:2:-1]:
+        x, ws, bs = mrf_cases.inputs(gen, 32, c, length)
+        pack = Pack()
+        kern = lambda: mrf.wide_mrf_level(x, ws, bs, KS, DS, 0.1, pack)
+        bound_ms = mrf.mrf_flops(32, c, length, KS, DS) / 989e9
+        ms = [device_ms(kern, 2), device_ms(kern, 2)]
+        print(json.dumps({
+            "kernel": "wide_mrf_level", "B": 32, "C": c, "L": length, "ms": ms,
+            "plain_direct_ms": device_ms(lambda: mrf.mrf_level_plain(x, ws, bs, KS, DS, 0.1), 1),
+            "plain_phase_split_ms": device_ms(
+                lambda: mrf.mrf_level_plain(x, ws, bs, KS, DS, 0.1, phase_split=True), 1),
+            "bound_ms": bound_ms, "bound_share": bound_ms / min(ms),
+            "tile_n": mrf.wide_tile_n(c, 32, length, torch.cuda.get_device_properties(
+                "cuda").multi_processor_count)}), flush=True)
         del x, ws, bs
     hann = torch.hann_window(1024, periodic=True, device="cuda")
     for b in (1, 8, 32):
@@ -122,7 +138,8 @@ def main() -> None:
             "plain_ms": device_ms(
                 lambda: stft.stft_magnitude(wav, fe.cos_basis, fe.sin_basis, 160, 512), 10),
             "host_us": host_us(kern)}), flush=True)
-    print(json.dumps({"ptxas": {n: _build.resources(n) for n in ("mrf", "stft")}}), flush=True)
+    print(json.dumps({"ptxas": {n: _build.resources(n) for n in ("mrf", "stft", "conv_nlc")}}),
+          flush=True)
 
 
 if __name__ == "__main__":

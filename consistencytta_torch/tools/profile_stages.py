@@ -18,8 +18,9 @@ whole 1-NFE generate call
 eagerly (`graphs.eager`), so that the trace holds the module spans (`norm`,
 `resnet`, `transformer`, `mrf`), which a replay does not record. It prints
 what `utils.read_trace` reads from that trace: the device's busy share of
-the call, the kernels with the most time (K1-K3 under their launch names,
-`LAUNCH_NAMES`), the time and launches of cuBLAS's unaligned GEMM
+the call, the kernels with the most time (K1-K3 and K7 under their launch
+names, `LAUNCH_NAMES`; K7's name is that of its three kernels, the convs'
+and the two layout passes'), the time and launches of cuBLAS's unaligned GEMM
 fallbacks (`UNALIGNED_GEMM`: its sm75 `align1` and sm80 `align2` kernels,
 which a GEMM takes where a row is not a multiple of 16 bytes; about 0 since
 the UNet transformer runs at aligned widths) and the longest idle gaps with
@@ -53,6 +54,7 @@ from consistencytta_torch import graphs
 from consistencytta_torch.configs import PipelineConfig
 from consistencytta_torch.inference.generate import GenerateConfig, build_generate_fn
 from consistencytta_torch.models.pipeline import Pipeline
+from consistencytta_torch.ops.mrf import WIDE_LAUNCH_NAME
 from consistencytta_torch.utils import (STAGE_SPANS, PhaseTimer, Tracer, graph_counts,
                                         profile_trace, read_trace, reset_graph_counts,
                                         resolve_device)
@@ -64,7 +66,7 @@ ITERS = 10
 GUIDANCE = 4.0
 # the launch names of the kernels on the generate path, as the trace shows them
 LAUNCH_NAMES = {"K1": "mha_packed_kernel", "K2": "self_attention_kernel",
-                "K3": "mrf_level_kernel"}
+                "K3": "mrf_level_kernel", "K7": WIDE_LAUNCH_NAME}
 # cuBLAS's fallback GEMMs for rows of 2 or 4 bytes' alignment, named ..._align1 / _align2
 UNALIGNED_GEMM = re.compile(r"align[12](?![0-9])")
 

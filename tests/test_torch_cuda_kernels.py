@@ -5,13 +5,13 @@ imports nothing of JAX, so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
-(`--noconftest`: tests/conftest.py sets up JAX.) The attention, MRF and
-dilated-conv inputs are bf16. Their tolerances scale with the plain output's
-own size, as in chip_smoke.py: the largest error at most 2e-2 (attention,
-one conv) or 3e-2 (the 18-conv MRF chain) of the output's largest magnitude,
-and the relative L2 error at most 1e-2. bf16 rounding alone moves these
-outputs by about 0.5% on both measures; a wrong softmax scale or a dropped
-key tile moves them by 9% or more.
+(`--noconftest`: tests/conftest.py sets up JAX.) The attention, MRF (K3 and
+the wide levels' K7) and dilated-conv inputs are bf16. Their tolerances
+scale with the plain output's own size, as in chip_smoke.py: the largest
+error at most 2e-2 (attention, one conv) or 3e-2 (the 18-conv MRF chain) of
+the output's largest magnitude, and the relative L2 error at most 1e-2.
+bf16 rounding alone moves these outputs by about 0.5% on both measures; a
+wrong softmax scale or a dropped key tile moves them by 9% or more.
 
 The norm kernel (GroupNorm with or without its SiLU, LayerNorm, RMSNorm;
 bf16 and float32) is held in bf16 ulps of the output against its plain
@@ -35,6 +35,7 @@ from consistencytta_torch.ops import attention as ops
 from consistencytta_torch.ops import dilated_conv as dc
 from consistencytta_torch.ops import mrf, norm, stft
 from consistencytta_torch.ops._packs import Pack
+from consistencytta_torch.tools import mrf_cases as mc
 from consistencytta_torch.tools import norm_cases as nc
 
 KS = (3, 7, 11)
@@ -206,14 +207,6 @@ def test_kernels_refuse_what_they_do_not_take(gen):
                             [], [], KS, DS, 0.1)
 
 
-def _mrf_inputs(gen, b, c, length):
-    x = (torch.randn(b, c, length, device="cuda", generator=gen) * 0.5).bfloat16()
-    ws = [(torch.randn(c, c, k, device="cuda", generator=gen) / (c * k) ** 0.5).bfloat16()
-          for k in KS for _ in range(6)]
-    bs = [(torch.randn(c, device="cuda", generator=gen) * 0.05).bfloat16() for _ in range(18)]
-    return x, ws, bs
-
-
 # per width: below one tile, across a tile's edge (T + 5), a prime length, and
 # batch 32 over several tiles; then the wider levels (workspace at C = 512)
 MRF_CASES = [(1, 32, 97), (2, 32, 661), (1, 32, 2003), (32, 32, 2 * 656 + 9),
@@ -224,7 +217,7 @@ MRF_CASES = [(1, 32, 97), (2, 32, 661), (1, 32, 2003), (32, 32, 2 * 656 + 9),
 
 @pytest.mark.parametrize("b,c,length", MRF_CASES)
 def test_fused_mrf_level(gen, b, c, length):
-    x, ws, bs = _mrf_inputs(gen, b, c, length)
+    x, ws, bs = mc.inputs(gen, b, c, length)
     before = mrf.fused_mrf_level.launches
     got = mrf.fused_mrf_level(x, ws, bs, KS, DS, 0.1)
     torch.cuda.synchronize()
@@ -237,7 +230,7 @@ def test_mrf_tolerance_rejects_planted_faults(gen, c):
     """The kernel passes, and the plain level with a tile of 64 positions
     left at x, without the zero padding at the edges, or without its biases
     fails the same tolerance."""
-    x, ws, bs = _mrf_inputs(gen, 2, c, 1500)
+    x, ws, bs = mc.inputs(gen, 2, c, 1500)
     want = mrf.mrf_level_plain(x, ws, bs, KS, DS, 0.1)
     assert_close_rel(mrf.fused_mrf_level(x, ws, bs, KS, DS, 0.1), want, 3e-2)
     tile = want.clone()
@@ -260,7 +253,7 @@ def test_mrf_gradient_wrt_x_is_the_plain_gradient(gen, b, c, length):
     the gradient with respect to x equals autograd through the plain level,
     the weights get none, and the tolerance rejects the plain gradient with
     the slope 0.2 or one dilation triple reversed."""
-    x, ws, bs = _mrf_inputs(gen, b, c, length)
+    x, ws, bs = mc.inputs(gen, b, c, length)
     g = torch.randn(b, c, length, device="cuda", generator=gen).bfloat16()
 
     def grad(fn, ds=DS, slope=0.1):
@@ -281,7 +274,7 @@ def test_mrf_gradient_wrt_x_is_the_plain_gradient(gen, b, c, length):
 def test_mrf_writes_nothing_outside_its_output(gen, b, c, length):
     """The output lands inside a longer buffer filled with a sentinel; every
     element before and after [B, C, L] keeps it."""
-    x, ws, bs = _mrf_inputs(gen, b, c, length)
+    x, ws, bs = mc.inputs(gen, b, c, length)
     n, pad = x.numel(), 4096
     buffer = torch.full((n + 2 * pad,), -7.0, device="cuda", dtype=torch.bfloat16)
     out = buffer[pad:pad + n].view(b, c, length)
@@ -292,12 +285,91 @@ def test_mrf_writes_nothing_outside_its_output(gen, b, c, length):
 
 
 def test_mrf_repacks_after_an_in_place_weight_update(gen):
-    x, ws, bs = _mrf_inputs(gen, 1, 64, 500)
+    x, ws, bs = mc.inputs(gen, 1, 64, 500)
     pack = Pack()  # held across the calls, as the vocoder holds its levels'
     mrf.fused_mrf_level(x, ws, bs, KS, DS, 0.1, pack)
     ws[4].mul_(-1.0)
     got = mrf.fused_mrf_level(x, ws, bs, KS, DS, 0.1, pack)
     assert_close_rel(got, mrf.mrf_level_plain(x, ws, bs, KS, DS, 0.1), 3e-2)
+
+
+# -- K7: the wide MRF levels ------------------------------------------------
+
+# at the cells' levels (C = 256 at L = 20,484; C = 512 at 5,121) at batch 1,
+# 8 and 32, at a prime length, and at C = 192 (tiles of 64 channels)
+WIDE_CASES = [(b, c, length) for c, length in ((256, 20484), (512, 5121)) for b in (1, 8, 32)] + [
+    (2, 256, 4099), (1, 512, 4099), (2, 192, 997)]
+
+
+@pytest.mark.parametrize("b,c,length", WIDE_CASES)
+def test_wide_mrf_level(gen, b, c, length):
+    x, ws, bs = mc.inputs(gen, b, c, length)
+    before = mrf.wide_mrf_level.launches
+    got = mrf.wide_mrf_level(x, ws, bs, KS, DS, 0.1)
+    torch.cuda.synchronize()
+    assert mrf.wide_mrf_level.launches == before + 20  # 18 convs, the two layout passes
+    assert_close_rel(got, mrf.mrf_level_plain(x, ws, bs, KS, DS, 0.1), 3e-2)
+
+
+@pytest.mark.parametrize("c,length", [(256, 4099), (512, 1031)])
+def test_wide_mrf_tolerance_rejects_planted_faults(gen, c, length):
+    """The kernel passes, and the plain level with each of mrf_cases' planted
+    faults (dilations reversed, a bias dropped, slope 0.2, a tap's row
+    offset off by one) fails the same tolerance."""
+    x, ws, bs = mc.inputs(gen, 2, c, length)
+    want = mrf.mrf_level_plain(x, ws, bs, KS, DS, 0.1)
+    assert mc.close(mrf.wide_mrf_level(x, ws, bs, KS, DS, 0.1), want)
+    for name in mc.FAULTS:
+        assert not mc.close(mc.fault(x, ws, bs, name), want), name
+
+
+@pytest.mark.parametrize("b,c,length", [(2, 256, 4099), (1, 512, 5121)])
+def test_wide_mrf_gradient_wrt_x_is_the_plain_gradient(gen, b, c, length):
+    """Through the autograd.Function (stage 3 decodes with gradients on x):
+    the gradient with respect to x equals autograd through the plain level,
+    the weights get none, and the tolerance rejects the plain gradient with
+    the slope 0.2 or the dilations reversed."""
+    x, ws, bs = mc.inputs(gen, b, c, length)
+    g = torch.randn(b, c, length, device="cuda", generator=gen).bfloat16()
+
+    def grad(fn, ds=DS, slope=0.1):
+        leaf = x.clone().requires_grad_()
+        return torch.autograd.grad(fn(leaf, ws, bs, KS, ds, slope), leaf, g)[0]
+
+    got = grad(mrf.wide_mrf_level)
+    want = grad(mrf.mrf_level_plain)
+    assert got.dtype == torch.bfloat16 and all(w.grad is None for w in ws)
+    assert_close_rel(got, want, 3e-2)
+    for bad in (grad(mrf.mrf_level_plain, slope=0.2),
+                grad(mrf.mrf_level_plain, ds=tuple(d[::-1] for d in DS))):
+        with pytest.raises(AssertionError):
+            assert_close_rel(bad, want, 3e-2)
+
+
+def test_wide_mrf_repacks_after_an_in_place_weight_update(gen):
+    x, ws, bs = mc.inputs(gen, 1, 256, 700)
+    pack = Pack()  # held across the calls, as the vocoder holds its levels'
+    mrf.wide_mrf_level(x, ws, bs, KS, DS, 0.1, pack)
+    ws[4].mul_(-1.0)
+    bs[7].add_(0.5)
+    got = mrf.wide_mrf_level(x, ws, bs, KS, DS, 0.1, pack)
+    assert_close_rel(got, mrf.mrf_level_plain(x, ws, bs, KS, DS, 0.1), 3e-2)
+
+
+def test_wide_mrf_level_refuses_what_it_does_not_take(gen):
+    x, ws, bs = mc.inputs(gen, 1, 256, 100)
+    with pytest.raises(TypeError):
+        mrf.wide_mrf_level(x.float(), [w.float() for w in ws], [b.float() for b in bs],
+                           KS, DS, 0.1)
+    y, ws224, bs224 = mc.inputs(gen, 1, 224, 100)  # not a multiple of 64
+    with pytest.raises(ValueError):
+        mrf.wide_mrf_level(y, ws224, bs224, KS, DS, 0.1)
+    z, ws128, bs128 = mc.inputs(gen, 1, 128, 100)  # K3's width
+    with pytest.raises(ValueError):
+        mrf.wide_mrf_level(z, ws128, bs128, KS, DS, 0.1)
+    even = [torch.zeros(256, 256, 4, device="cuda", dtype=torch.bfloat16)] * 6 + ws[6:]
+    with pytest.raises(ValueError):
+        mrf.wide_mrf_level(x, even, bs, (4, 7, 11), DS, 0.1)
 
 
 # -- K4: STFT magnitude ------------------------------------------------------

@@ -213,7 +213,8 @@ def _launches():
 
     return {"flash_mha_packed": attention.flash_mha_packed.launches,
             "flash_self_attention": attention.flash_self_attention.launches,
-            "fused_mrf_level": mrf.fused_mrf_level.launches}
+            "fused_mrf_level": mrf.fused_mrf_level.launches,
+            "wide_mrf_level": mrf.wide_mrf_level.launches}
 
 
 @pytest.mark.cuda
@@ -304,16 +305,17 @@ def _settle(module, args):
 
 @pytest.mark.cuda
 def test_replay_outlives_the_pack_cache(card):
-    """The vocoder's K3 weight packs, which its levels' `Pack`s hold: after
-    the weights change in place, one eager call makes them anew into the
-    storage the graph reads, and the replays after it equal eager calls."""
+    """The vocoder's weight packs (K3's at the three fused levels, K7's at the
+    two wide ones), which its levels' `Pack`s hold: after the weights change
+    in place, one eager call makes them anew into the storage the graph
+    reads, and the replays after it equal eager calls."""
     module, args = _stage_calls(card, 1, 8)["vocoder"]
     ptrs = lambda: [t.data_ptr() for p in module.level_packs if p.copy for t in p.copy]
     try:
         with torch.no_grad():
             module(*args)  # captured, reading the packs
             held = ptrs()
-            assert len(held) == 2 * 3  # weights and biases of the three fused levels
+            assert len(held) == 2 * 5  # weights and biases of the five levels
             _scale_in_place(module, 0.5)
             utils.reset_graph_counts()
             first = module(*args)
@@ -326,6 +328,10 @@ def test_replay_outlives_the_pack_cache(card):
             junk = [torch.full(shape, float("nan"), dtype=torch.bfloat16, device="cuda")
                     for c in (128, 64, 32)
                     for shape in ((18 * c, -(-11 * c // mrf.UNIT_K) * mrf.UNIT_K), (18, c))]
+            junk += [torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+                     for c in (512, 256)
+                     for shape, dtype in (((126 * c * c,), torch.bfloat16),
+                                          ((18, c), torch.float32))]
             got = module(*args)
             del junk
             assert utils.graph_counts()["vocoder"]["replays"] == 1
@@ -366,7 +372,8 @@ def test_replay_reads_weights_loaded_in_place(card, stage):
 @pytest.mark.cuda
 def test_counters_read_what_the_calls_imply(card):
     text = _text(card.config, 3, 21, 0)  # a shape no other test calls
-    per_call = {"flash_mha_packed": 16, "flash_self_attention": 1, "fused_mrf_level": 3}
+    per_call = {"flash_mha_packed": 16, "flash_self_attention": 1, "fused_mrf_level": 3,
+                "wide_mrf_level": 40}
     utils.reset_graph_counts()
     start = _launches()
     for i, (event, ctx) in enumerate((("captures", None), ("replays", None),
