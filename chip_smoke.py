@@ -2346,13 +2346,20 @@ def main() -> None:
 
     # The norm kernel (csrc/norm.cu): every distinct GroupNorm (+ SiLU),
     # LayerNorm and RMSNorm call of a 1-NFE generate call at batch 32,
-    # weighted by how often the call repeats (tools/norm_cases.py enumerates
-    # them on the meta device and makes inputs whose groups differ in scale
-    # and offset). Tolerance: record's 2^-7 of the largest output, and 1 bf16
-    # ulp of each output (`ulps`). The faults: eps outside the square root,
-    # the neighbour's statistics, the SiLU left off, and for the transformer's
-    # padded LayerNorm rows (n true features of 256 / 512 / 1024) the
-    # statistics divided by the width. plain: the float32 copy,
+    # weighted by how often the call repeats, then those of a call of the
+    # full TANGO UNet's CFG teacher at batch 8 (tango-b8: GroupNorms of 10-80
+    # channels a group, LayerNorms on rows of 320, 640 and 1280, which take
+    # the rows kernel's two-warp instantiation), which are off the main path
+    # and weigh nothing in the sums (tools/norm_cases.py enumerates the calls
+    # on the meta device and makes inputs whose groups differ in scale and
+    # offset). A LayerNorm or RMSNorm launch must count under the rows
+    # instantiation that holds its width (norm.rows_launches). Tolerance:
+    # record's 2^-7 of the largest output, and 1 bf16 ulp of each output
+    # (`ulps`). The faults: eps outside the square root, the neighbour's
+    # statistics, the SiLU left off, for the transformer's padded LayerNorm
+    # rows (n true features of 256 / 512 / 1024) the statistics divided by
+    # the width, and for rows wider than 1024 the statistics over the first
+    # 1024 features, all that one warp holds. plain: the float32 copy,
     # torch's float32 norm and the cast back that the modules ran before the
     # kernel; library: torch's own norm on the bf16 input (float32 inside;
     # RMSNorm only where this torch has F.rms_norm), then F.silu where the
@@ -2364,33 +2371,43 @@ def main() -> None:
     from consistencytta_torch.tools import norm_cases as nb
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for (kind, shape, groups, eps, silu, n), per_call in sorted(
-            Counter(nb.generate_norms(*nb.CALLS["generate-b32"])).items()):
+    main_calls = Counter(nb.generate_norms(*nb.CALLS["generate-b32"]))
+    tango_calls = Counter(nb.generate_norms(*nb.CALLS["tango-b8"]))
+    cases = ([("", c, k, k) for c, k in sorted(main_calls.items())]
+             + [("tango-b8 ", c, k, 0) for c, k in sorted(tango_calls.items())
+                if c not in main_calls])
+    for cell, (kind, shape, groups, eps, silu, n), per_call, weight in cases:
         x, w, b = nb.inputs(kind, shape, groups, torch.bfloat16, gen, n)
         call = (kind, x, w, b, groups, eps, silu, n)
         kern = lambda: nb.kernel_call(*call)
         plain = lambda: nb.plain_call(*call)
         lib = (lambda: nb.library_call(*call)) if nb.has_library(kind) else None
         counter = {"group": norm.group_norm, "layer": norm.layer_norm, "rms": norm.rms_norm}[kind]
+        held = None if kind == "group" else norm.rows_launches[norm.rows_instantiation(shape[-1])]
+        before = None if held is None else held.launches
         got, want = launch(counter, kern), plain()
+        if held is not None and held.launches != before + 1:
+            fail(f"norm {cell}{kind} {tuple(shape)}: not counted under the rows instantiation "
+                 f"{norm.rows_instantiation(shape[-1])}")
         faults = (["eps_outside_sqrt", "neighbour_statistics"] + (["silu_left_off"] if silu else [])
-                  + ([nb.PAD_FAULT] if 0 < n < shape[-1] else []))
+                  + ([nb.PAD_FAULT] if 0 < n < shape[-1] else [])
+                  + ([nb.WIDE_FAULT] if kind != "group" and shape[-1] > 1024 else []))
         mutants = {f: (nb.group_norm_fault(x, groups, w, b, eps, silu, f) if kind == "group"
                        else nb.row_norm_fault(x, w, b, eps, kind == "rms", f, n or None))
                    for f in faults}
         ulps = nb.ulps(got, want)
         iters = max(3, int(2e8 // x.numel()))
         device_ms, graph_error = graph_ms(kern, max(2, min(20, int(2**30 // (2 * x.numel())))))
-        label = f"{kind} {tuple(shape)} groups={groups} silu={silu} n={n}"
+        label = f"{cell}{kind} {tuple(shape)} groups={groups} silu={silu} n={n}"
         record("norm", label, got, want, 2 ** -7, mutants, cuda_ms(torch, kern, iters),
                cuda_ms(torch, plain, 3), None if lib is None else cuda_ms(torch, lib, iters), 0.0,
-               nb.bound_ms(x, kind) * 1e-3 * PEAK_BYTES, per_call, ulps=ulps,
+               nb.bound_ms(x, kind) * 1e-3 * PEAK_BYTES, per_call, weight=weight, ulps=ulps,
                tol_ulps=nb.TOL_ULPS[torch.bfloat16], device_ms=device_ms,
                device_ms_error=graph_error,
                plan=norm.group_plan(shape[0] * groups, x[0].numel() // groups, 2, sms)
                if kind == "group" else norm.rows_plan(x.numel() // shape[-1], shape[-1], 2, sms))
         if ulps > nb.TOL_ULPS[torch.bfloat16]:
-            fail(f"norm {kind} {tuple(shape)}: {ulps} bf16 ulps from the plain version")
+            fail(f"norm {cell}{kind} {tuple(shape)}: {ulps} bf16 ulps from the plain version")
         del x, w, b, got, want, mutants
         torch.cuda.empty_cache()
 

@@ -167,6 +167,16 @@ class UNetConfig(JsonConfig):
         return len(self.block_out_channels)
 
 
+# The two shipped UNet configs (reference configs/tango_diffusion_light.json
+# and configs/tango_diffusion.json). TANGO's full UNet runs every width at a
+# head width of 64, so its transformers pad nothing; with `guided=False` it
+# is the TANGO teacher.
+TANGO_LIGHT_UNET = UNetConfig()
+TANGO_FULL_UNET = UNetConfig(
+    block_out_channels=(320, 640, 1280, 1280),
+)
+
+
 @dataclass(frozen=True)
 class T5Config(JsonConfig):
     """T5 encoder config; defaults match google/flan-t5-large."""

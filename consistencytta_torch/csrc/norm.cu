@@ -42,16 +42,20 @@
 //     RESIDENT_BYTES (192 KB: groups over 1.5 MB, such as the float32 VAE
 //     decoder's 8 x 65,536, 2 MB) is streamed through shared memory in
 //     tiles, once per pass.
-//   - ctta_norm_rows_kernel (LayerNorm, RMSNorm, up to 1024 wide): a block
+//   - ctta_norm_rows_kernel (LayerNorm, RMSNorm, up to 1280 wide): a block
 //     stages R consecutive rows as one contiguous span (a row of 255 bf16
 //     starts on a 2-byte boundary, so row-wise vector loads would not be
-//     aligned), a warp takes a row at a time into registers (E <= 32
-//     elements a lane), reduces with shuffles, writes the normalised row
-//     back into shared memory, and the block stores the span with 16-byte
-//     vectors. A row of D elements may hold n <= D true features followed
-//     by padding (the UNet transformer's rows of 256 that hold 255): the
-//     statistics and the affine take the first n, and the last D - n
-//     outputs are written as 0, whatever the input holds there.
+//     aligned), W warps take a row at a time into registers (E elements a
+//     lane: a warp a row at E = 8, 16, 32 for rows up to 256, 512, 1024;
+//     two warps a row at E = 20 for rows up to 1280, TANGO's level-2
+//     transformer's, 5-12% faster than one warp at E = 40 on an H100),
+//     reduce with shuffles (two warps add their partial sums through
+//     shared memory), write the normalised row back into shared memory,
+//     and the block stores the span with 16-byte vectors. A row of D
+//     elements may hold n <= D true features followed by padding (the
+//     UNet transformer's rows of 256 that hold 255): the statistics and
+//     the affine take the first n, and the last D - n outputs are written
+//     as 0, whatever the input holds there.
 // Neither allocates anything; the wrapper (ops/norm.py) allocates the output
 // and plans the launch (group_plan, rows_plan). Both capture into CUDA
 // graphs: a launch reads only its arguments.
@@ -179,38 +183,64 @@ __device__ __forceinline__ float act(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// Rows of up to 32 * E elements: a warp a row, R rows a block.
+// Rows of up to 32 * E * W elements: W warps a row, R rows a block.
 
-template <typename T, bool RMS, int E>
+// The sum over a row of the W warps that hold it, in the same order in each
+// of them; with W > 1 the row's warps exchange their partial sums in red,
+// one slot a warp, under a named barrier of the row's warps alone.
+template <int W>
+__device__ __forceinline__ float row_sum(float v, float* red) {
+  v = warp_sum(v);
+  if constexpr (W == 1) {
+    return v;
+  } else {
+    const int warp = threadIdx.x >> 5, first = warp - warp % W;
+    if ((threadIdx.x & 31) == 0) red[warp] = v;
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + warp / W), "r"(32 * W) : "memory");
+    float t = 0.f;
+#pragma unroll
+    for (int i = 0; i < W; ++i) t += red[first + i];
+    return t;
+  }
+}
+
+template <typename T, bool RMS, int E, int W>
 __global__ void __launch_bounds__(NT) ctta_norm_rows_kernel(
     const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ w,
     const float* __restrict__ b, long long n_rows, int D, int n, int R, float eps) {
+  static_assert(NWARPS % W == 0, "a block's warps in whole rows");
   constexpr int N = Vec<T>::N;
   extern __shared__ __align__(16) unsigned char smem[];
+  // two slots a warp, taken in turn by a warp's successive sums (a
+  // LayerNorm's two a row, an RMSNorm's one): a warp rewrites a slot only
+  // after passing the barrier of the sum after it, which the row's other
+  // warps reach only once they have read the slot
+  __shared__ float red[2][NWARPS];
+  int sums = 0;
   T* buf = reinterpret_cast<T*>(smem);
   const long long r0 = (long long)blockIdx.x * R;
   const int rows = (int)min((long long)R, n_rows - r0);
   const long long s = r0 * D, e = s + (long long)rows * D;
   stage(x, buf, s, e);
-  const int lane = threadIdx.x & 31;
+  const int lane = threadIdx.x & 31, part = (threadIdx.x >> 5) % W;
   const long long skew = s - (s / N) * N;  // buf index of element s
-  for (int r = threadIdx.x >> 5; r < rows; r += NWARPS) {
+  for (int r = (threadIdx.x >> 5) / W; r < rows; r += NWARPS / W) {
     T* row = buf + skew + (long long)r * D;
     float v[E];
     float acc = 0.f;
 #pragma unroll
     for (int k = 0; k < E; ++k) {
-      const int j = lane + 32 * k;
+      const int j = lane + 32 * (part + W * k);
       v[k] = j < n ? to_f(row[j]) : 0.f;
       acc += v[k];
     }
     float mean = 0.f;
     if constexpr (!RMS) {
-      mean = warp_sum(acc) / n;
+      mean = row_sum<W>(acc, red[sums++ & 1]) / n;
       acc = 0.f;
 #pragma unroll
       for (int k = 0; k < E; ++k) {
-        const float d = lane + 32 * k < n ? v[k] - mean : 0.f;
+        const float d = lane + 32 * (part + W * k) < n ? v[k] - mean : 0.f;
         acc += d * d;
       }
     } else {
@@ -218,10 +248,10 @@ __global__ void __launch_bounds__(NT) ctta_norm_rows_kernel(
 #pragma unroll
       for (int k = 0; k < E; ++k) acc += v[k] * v[k];
     }
-    const float rstd = rsqrtf(warp_sum(acc) / n + eps);
+    const float rstd = rsqrtf(row_sum<W>(acc, red[sums++ & 1]) / n + eps);
 #pragma unroll
     for (int k = 0; k < E; ++k) {
-      const int j = lane + 32 * k;
+      const int j = lane + 32 * (part + W * k);
       if (j < n) {
         const float scale = w ? rstd * __ldg(w + j) : rstd;
         row[j] = from_f<T>(fmaf(v[k] - mean, scale, b ? __ldg(b + j) : 0.f));
@@ -398,10 +428,11 @@ cudaError_t allow_smem() {
   return err;
 }
 
-template <typename T, bool RMS, int E>
+template <typename T, bool RMS, int E, int W>
 int launch_rows(const void* x, void* y, const void* w, const void* b, long long n_rows, int D,
                 int n, int R, float eps, cudaStream_t stream) {
-  constexpr auto kernel = ctta_norm_rows_kernel<T, RMS, E>;
+  constexpr auto kernel = ctta_norm_rows_kernel<T, RMS, E, W>;
+  if (D > 32 * E * W) return (int)cudaErrorInvalidValue;  // wider than the instantiation holds
   cudaError_t err = allow_smem<kernel>();
   if (err != cudaSuccess) return (int)err;
   const size_t smem = ((size_t)R * D + 2 * Vec<T>::N) * sizeof(T);
@@ -441,18 +472,27 @@ int launch_groups(const void* x, void* y, const void* w, const void* b, long lon
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int rows_dispatch(const void* x, void* y, const void* w, const void* b, int rms, long long n_rows,
-                  int D, int n, int R, float eps, cudaStream_t s) {
-  const int e = (D + 31) / 32;
-  if (rms) {
-    if (e <= 8) return launch_rows<T, true, 8>(x, y, w, b, n_rows, D, n, R, eps, s);
-    if (e <= 16) return launch_rows<T, true, 16>(x, y, w, b, n_rows, D, n, R, eps, s);
-    return launch_rows<T, true, 32>(x, y, w, b, n_rows, D, n, R, eps, s);
+// The instantiation `held` of ops/norm.py:ROWS_WIDTHS, which
+// rows_instantiation picks: a warp a row at E = 8, 16, 32 (rows up to 256,
+// 512, 1024), two warps a row at E = 20 (up to 1280). An unknown index, or
+// a row wider than the instantiation holds, is an error.
+template <typename T, bool RMS>
+int rows_width_dispatch(int held, const void* x, void* y, const void* w, const void* b,
+                        long long n_rows, int D, int n, int R, float eps, cudaStream_t s) {
+  switch (held) {
+    case 0: return launch_rows<T, RMS, 8, 1>(x, y, w, b, n_rows, D, n, R, eps, s);
+    case 1: return launch_rows<T, RMS, 16, 1>(x, y, w, b, n_rows, D, n, R, eps, s);
+    case 2: return launch_rows<T, RMS, 32, 1>(x, y, w, b, n_rows, D, n, R, eps, s);
+    case 3: return launch_rows<T, RMS, 20, 2>(x, y, w, b, n_rows, D, n, R, eps, s);
   }
-  if (e <= 8) return launch_rows<T, false, 8>(x, y, w, b, n_rows, D, n, R, eps, s);
-  if (e <= 16) return launch_rows<T, false, 16>(x, y, w, b, n_rows, D, n, R, eps, s);
-  return launch_rows<T, false, 32>(x, y, w, b, n_rows, D, n, R, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int rows_dispatch(int held, const void* x, void* y, const void* w, const void* b, int rms,
+                  long long n_rows, int D, int n, int R, float eps, cudaStream_t s) {
+  if (rms) return rows_width_dispatch<T, true>(held, x, y, w, b, n_rows, D, n, R, eps, s);
+  return rows_width_dispatch<T, false>(held, x, y, w, b, n_rows, D, n, R, eps, s);
 }
 
 template <typename T>
@@ -469,20 +509,21 @@ int groups_dispatch(const void* x, void* y, const void* w, const void* b, int si
 }  // namespace
 
 // x, y: [n_rows, D] contiguous, 16-byte aligned; dtype 0 bf16, 1 float32.
-// Each row's first n features (1 <= n <= D <= 1024) are normalised; its
-// last D - n outputs are 0. w, b: [n] float32 or null (no scale, no
-// shift). R rows a block. rms: y = x * rsqrt(mean(x^2) + eps) * w, else
-// the LayerNorm.
+// Each row's first n features (1 <= n <= D) are normalised; its last D - n
+// outputs are 0. w, b: [n] float32 or null (no scale, no shift). R rows a
+// block. rms: y = x * rsqrt(mean(x^2) + eps) * w, else the LayerNorm.
+// held: the instantiation that takes the rows (rows_width_dispatch), which
+// must hold D.
 extern "C" int norm_rows_fwd(const void* x, void* y, const void* w, const void* b, int dtype,
                              int rms, long long n_rows, int D, int n, int R, float eps,
-                             void* stream) {
-  if (n_rows < 1 || D < 1 || D > 1024 || n < 1 || n > D || R < 1 || (uintptr_t)x % 16 ||
+                             int held, void* stream) {
+  if (n_rows < 1 || D < 1 || n < 1 || n > D || R < 1 || (uintptr_t)x % 16 ||
       (uintptr_t)y % 16 || (n_rows + R - 1) / R > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return rows_dispatch<__nv_bfloat16>(x, y, w, b, rms, n_rows, D, n, R, eps, s);
-  if (dtype == 1) return rows_dispatch<float>(x, y, w, b, rms, n_rows, D, n, R, eps, s);
+    return rows_dispatch<__nv_bfloat16>(held, x, y, w, b, rms, n_rows, D, n, R, eps, s);
+  if (dtype == 1) return rows_dispatch<float>(held, x, y, w, b, rms, n_rows, D, n, R, eps, s);
   return (int)cudaErrorInvalidValue;
 }
 

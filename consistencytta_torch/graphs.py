@@ -186,7 +186,8 @@ def _launch_counters() -> tuple:
 
         _counters = (attention.flash_mha_packed, attention.flash_self_attention,
                      mrf.fused_mrf_level, mrf.wide_mrf_level, stft.stft_magnitude_cuda,
-                     dilated_conv.dilated_conv1d, norm.group_norm, norm.layer_norm, norm.rms_norm)
+                     dilated_conv.dilated_conv1d, norm.group_norm, norm.layer_norm, norm.rms_norm,
+                     *norm.rows_launches.values())
     return _counters
 
 

@@ -8,8 +8,10 @@ runs its plain version, the float32 code the modules ran before the kernel
 (`*_plain`). On a CUDA tensor (bfloat16 or float32, contiguous) it launches
 `csrc/norm.cu` and raises on anything else: GroupNorm on
 `ctta_norm_groups_kernel` (a cluster of blocks a group, `group_plan`),
-LayerNorm and RMSNorm on `ctta_norm_rows_kernel` (a warp a row,
-`rows_plan`; rows at most ROWS_MAX_WIDTH wide). `layer_norm` takes the
+LayerNorm and RMSNorm on `ctta_norm_rows_kernel` (one or two warps a
+row by width, `rows_instantiation`, `rows_plan`; rows at most
+ROWS_MAX_WIDTH wide). `rows_launches` counts the rows kernel's launches by
+the instantiation they took. `layer_norm` takes the
 count `n` of a row's true features: rows padded with zeros to the next
 multiple of 8 elements, 16 bytes of bf16 (the UNet transformer's 256 that
 hold 255), and no wider, are normalised over
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import torch
@@ -29,7 +32,11 @@ import torch.nn.functional as F
 
 from consistencytta_torch.ops import _build
 
-ROWS_MAX_WIDTH = 1024  # widest row a warp holds in registers (32 elements a lane)
+# the widest row of each of the rows kernel's instantiations, in the order
+# of csrc/norm.cu's rows_width_dispatch, which takes the index: a warp a row
+# at 8, 16, 32 elements a lane, two warps a row at 20
+ROWS_WIDTHS = (256, 512, 1024, 1280)
+ROWS_MAX_WIDTH = ROWS_WIDTHS[-1]  # widest row a block's warps hold in registers
 PAD_ALIGN = 8  # elements: a padded row's width is its true features rounded up to this
 ROWS_SPAN_BYTES = 32 * 1024  # rows a block stages at most, in bytes
 CHUNK_BYTES = 32 * 1024  # a group's part a block takes, at most where the cluster allows
@@ -113,9 +120,23 @@ def group_plan(n_rows: int, row_len: int, itemsize: int, sms: int) -> Tuple[int,
     return split, c, tile
 
 
+def rows_instantiation(width: int, what: str = "norm") -> int:
+    """The rows kernel's instantiation that takes rows of `width`, named by
+    the widest row it holds: the least of ROWS_WIDTHS at or above `width`.
+    The launch passes its index to the kernel, which takes no other. A row
+    wider than ROWS_MAX_WIDTH is refused."""
+    if width > ROWS_MAX_WIDTH:
+        raise ValueError(f"{what}: rows of {width} elements, over the {ROWS_MAX_WIDTH} "
+                         "the rows kernel holds")
+    return next(w for w in ROWS_WIDTHS if w >= width)
+
+
 def rows_plan(n_rows: int, width: int, itemsize: int, sms: int) -> int:
     """Rows a block of the rows kernel: enough for four blocks' worth an SM
-    at most, at least 8 (a row for each warp), within ROWS_SPAN_BYTES."""
+    at most, at least 8 (a row for each warp or pair of warps), within
+    ROWS_SPAN_BYTES; rows
+    wider than ROWS_MAX_WIDTH are refused (`rows_instantiation`)."""
+    rows_instantiation(width, "rows_plan")
     fit = max(1, ROWS_SPAN_BYTES // (width * itemsize))
     return max(1, min(max(8, -(-n_rows // (4 * sms))), fit))
 
@@ -173,16 +194,16 @@ def _groups_launch(x, y, w, b, silu, n_rows, row_len, groups, cpg, inner, eps):
 def _rows_launch(x, y, w, b, rms, eps, what, n):
     width = x.shape[-1]
     n_rows = x.numel() // width
-    if width > ROWS_MAX_WIDTH:
-        raise ValueError(f"{what}: rows of {width} elements, over the {ROWS_MAX_WIDTH} "
-                         "a warp holds")
+    held = rows_instantiation(width, what)
     fn = _build.load("norm").norm_rows_fwd
     fn.restype = ctypes.c_int
     r = rows_plan(n_rows, width, x.element_size(), _sms(x.device.index))
     code = fn(_ptr(x), _ptr(y), _ptr(w), _ptr(b), ctypes.c_int(DTYPES[x.dtype]),
               ctypes.c_int(int(rms)), ctypes.c_longlong(n_rows), ctypes.c_int(width),
-              ctypes.c_int(n), ctypes.c_int(r), ctypes.c_float(eps), _build.stream_ptr(x.device))
+              ctypes.c_int(n), ctypes.c_int(r), ctypes.c_float(eps),
+              ctypes.c_int(ROWS_WIDTHS.index(held)), _build.stream_ptr(x.device))
     _build.check(code, what)
+    rows_launches[held].launches += 1
 
 
 def _group_cuda(x, groups, weight, bias, eps, silu=False, out=None):
@@ -288,3 +309,7 @@ def rms_norm(x: torch.Tensor, weight, eps: float) -> torch.Tensor:
 group_norm.launches = 0
 layer_norm.launches = 0
 rms_norm.launches = 0
+# the rows kernel's launches (LayerNorm and RMSNorm) by the instantiation
+# they took (`rows_instantiation`), each a counter like the entry points'
+# `launches`
+rows_launches = {w: SimpleNamespace(launches=0) for w in ROWS_WIDTHS}

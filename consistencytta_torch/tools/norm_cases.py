@@ -3,10 +3,11 @@ kernel tests, the CPU tests and `chip_smoke.py`'s kernel phase.
 
 `generate_norms` lists every GroupNorm (+ SiLU), LayerNorm and RMSNorm call
 of one generate call (the port's modules run on the meta device with
-forward pre-hooks on their norms) at the batches of the benchmark's cells
-(`CALLS`), a LayerNorm's with the count `n` of its rows' true features
-(the UNet transformer pads its rows past them); `inputs` makes inputs whose
-groups and rows differ in scale and offset; `ulps` and `TOL_ULPS` hold the
+forward pre-hooks on their norms) at the batches and UNet widths of the
+benchmark's cells (`CALLS`), a LayerNorm's with the count `n` of its rows'
+true features (the UNet transformer pads its rows past them); `inputs`
+makes inputs whose groups and rows differ in scale and offset; `ulps` and
+`TOL_ULPS` hold the
 kernel to its plain float32 version in bf16 ulps of the output;
 `group_norm_fault` and `row_norm_fault` are the plain version with planted
 faults; `library_call` is torch's own norm and `bound_ms` the time of one
@@ -41,6 +42,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from consistencytta_torch.configs import TANGO_FULL_UNET, TANGO_LIGHT_UNET, UNetConfig
 from consistencytta_torch.ops import norm
 
 TOL_ULPS = {torch.bfloat16: 1.0, torch.float32: 0.5}
@@ -121,12 +123,15 @@ def row_norm_fault(x, w, b, eps, rms: bool, fault: str, n=None):
     """layer_norm_plain (rms False, over the first `n` features) or
     rms_norm_plain with one fault, as in group_norm_fault;
     `neighbour_statistics` takes the next row's; `width_divisor` divides a
-    padded row's sums by its width in place of n."""
+    padded row's sums by its width in place of n; `statistics_over_1024`
+    takes the statistics over the first 1024 features only, all that one
+    warp of the rows kernel holds."""
     width = x.shape[-1]
     n = width if n is None else n
     x32 = x.float()[..., :n]
     average = ((lambda t: t.sum(-1, keepdim=True) / width) if fault == "width_divisor"
-               else (lambda t: t.mean(-1, keepdim=True)))
+               else (lambda t: t[..., :1024].mean(-1, keepdim=True))
+               if fault == "statistics_over_1024" else (lambda t: t.mean(-1, keepdim=True)))
     mean = torch.zeros_like(x32[..., :1]) if rms else average(x32)
     var = average((x32 - mean).pow(2))
     if fault == "one_pass_variance" and not rms:
@@ -148,6 +153,7 @@ GROUP_FAULTS = ("eps_outside_sqrt", "neighbour_statistics", "one_pass_variance",
                 "silu_left_off")
 ROW_FAULTS = ("eps_outside_sqrt", "neighbour_statistics", "one_pass_variance")
 PAD_FAULT = "width_divisor"  # a fault only where a row is padded (n < width)
+WIDE_FAULT = "statistics_over_1024"  # a fault only where a row is wider than 1024
 
 
 # -- the norms a generate call sends ---------------------------------------------
@@ -157,11 +163,12 @@ Call = Tuple[str, Tuple[int, ...], int, float, bool, int]
 
 
 @lru_cache(maxsize=None)
-def generate_norms(batch: int, text_len: int, unet_batch: int) -> Tuple[Call, ...]:
+def generate_norms(batch: int, text_len: int, unet_batch: int,
+                   unet: UNetConfig = TANGO_LIGHT_UNET) -> Tuple[Call, ...]:
     """The norm calls of one generate call, in order: T5 over `text_len`
-    tokens and one UNet query at `unet_batch`, the VAE decoder at `batch`,
-    found with forward pre-hooks on the port's norm modules run on the meta
-    device at the published widths."""
+    tokens and one query of the UNet `unet` at `unet_batch`, the VAE decoder
+    at `batch`, found with forward pre-hooks on the port's norm modules run
+    on the meta device at the published widths."""
     from consistencytta_torch.configs import PipelineConfig
     from consistencytta_torch.nn.layers import GroupNorm, LayerNorm
     from consistencytta_torch.nn.t5 import RMSNorm, T5Encoder
@@ -179,8 +186,8 @@ def generate_norms(batch: int, text_len: int, unet_batch: int) -> Tuple[Call, ..
 
     meta = torch.device("meta")
     with meta:
-        t5, unet, dec = T5Encoder(cfg.t5), UNet2DConditionGuided(cfg.unet), Decoder(cfg.vae)
-    for mod in (t5, unet, dec):
+        t5, model, dec = T5Encoder(cfg.t5), UNet2DConditionGuided(unet), Decoder(cfg.vae)
+    for mod in (t5, model, dec):
         for m in mod.modules():
             if type(m) in kinds:
                 m.register_forward_pre_hook(hook, with_kwargs=True)
@@ -189,16 +196,19 @@ def generate_norms(batch: int, text_len: int, unet_batch: int) -> Tuple[Call, ..
         ids = torch.zeros(unet_batch, text_len, dtype=torch.long, device=meta)
         t5(ids, ids)
         vec = torch.zeros(unet_batch, device=meta)
-        unet(torch.zeros(unet_batch, lat.t, lat.f, lat.c, device=meta), vec,
-             torch.zeros(unet_batch, text_len, cfg.t5.d_model, device=meta), ids, vec)
+        model(torch.zeros(unet_batch, lat.t, lat.f, lat.c, device=meta), vec,
+              torch.zeros(unet_batch, text_len, cfg.t5.d_model, device=meta), ids, vec)
         dec(torch.zeros(batch, cfg.vae.z_channels, lat.t, lat.f, device=meta))
     return tuple(calls)
 
 
-# (batch, text_len, unet_batch) of the calls the benchmark's cells make: bulk
-# generation at batch 32, the CFG teacher at batch 8 (its UNet at 16), one
-# prompt of up to 40 tokens
-CALLS = {"generate-b32": (32, 64, 32), "teacher-b8": (8, 64, 16), "generate-b1": (1, 40, 1)}
+# (batch, text_len, unet_batch[, UNet]) of the calls the benchmark's cells
+# make: bulk generation at batch 32, the CFG teacher at batch 8 (its UNet at
+# 16), one prompt of up to 40 tokens, and the CFG teacher of TANGO's full
+# UNet (320/640/1280/1280: GroupNorms of 10-80 channels a group, LayerNorms
+# on rows of 320, 640 and 1280)
+CALLS = {"generate-b32": (32, 64, 32), "teacher-b8": (8, 64, 16), "generate-b1": (1, 40, 1),
+         "tango-b8": (8, 64, 16, TANGO_FULL_UNET)}
 
 
 def plain_call(kind, x, w, b, groups, eps, silu, n=0):

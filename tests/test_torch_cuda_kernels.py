@@ -27,6 +27,8 @@ single bf16 or TF32 pass (1e-3 to 1e-4 of it), zero padding or a dropped
 window tail all fail.
 """
 
+import hashlib
+
 import pytest
 import torch
 
@@ -704,6 +706,81 @@ def test_layer_norm_of_padded_rows(gen, n, width, dtype):
     assert not nc.close(nc.row_norm_fault(x, w, b, 1e-5, False, nc.PAD_FAULT, n), want)
 
 
+@pytest.mark.parametrize("n", [1280, 1275])
+@pytest.mark.parametrize("dtype", NORM_DTYPES)
+def test_layer_norm_of_rows_of_1280(gen, n, dtype):
+    """TANGO's level-2 LayerNorms: rows of 1280 take the two-warp
+    instantiation (counted under it), every row within the tolerance of the
+    plain version, zeros after n whatever x held there; the statistics
+    taken over the first 1024 features alone fail the tolerance."""
+    before = {e: c.launches for e, c in norm.rows_launches.items()}
+    x, w, b, got, want = _norm_check("layer", (2, 1000, 1280), 0, 1e-5, False, dtype, gen, n)
+    assert {e: c.launches - before[e] for e, c in norm.rows_launches.items()} == {
+        256: 0, 512: 0, 1024: 0, 1280: 1}
+    assert (got[..., n:] == 0).all() and (n == 1280 or (x[..., n:] != 0).any())
+    bad = nc.row_norm_fault(x, w, b, 1e-5, False, nc.WIDE_FAULT, n)
+    assert not nc.close(bad, want)
+
+
+@pytest.mark.parametrize("width", [1280, 1275])
+@pytest.mark.parametrize("dtype", NORM_DTYPES)
+def test_rms_norm_of_rows_of_1280(gen, width, dtype):
+    """RMSNorm on rows of 1025-1280 takes the two-warp instantiation too,
+    which makes one sum a row where a LayerNorm makes two. Each pair of
+    warps takes two rows or more of a block (8 rows a block in bf16), so a
+    pair's exchange slot rewritten before the partner read it would put a
+    row off the plain version; the statistics over the first 1024 features
+    alone fail the tolerance."""
+    before = {e: c.launches for e, c in norm.rows_launches.items()}
+    x, w, _, got, want = _norm_check("rms", (2, 1000, width), 0, 1e-6, False, dtype, gen)
+    assert {e: c.launches - before[e] for e, c in norm.rows_launches.items()} == {
+        256: 0, 512: 0, 1024: 0, 1280: 1}
+    # more rows a block than the block's 4 pairs of warps
+    assert norm.rows_plan(2000, width, x.element_size(), 132) > 4
+    bad = nc.row_norm_fault(x, w, None, 1e-6, True, nc.WIDE_FAULT)
+    assert not nc.close(bad, want)
+
+
+def _rows_digest(gen, kind, width, n, dtype):
+    x, w, b = nc.inputs(kind, (4, 333, width), 0, dtype, gen, n)
+    y = nc.kernel_call(kind, x, w, b, 0, 1e-5 if kind == "layer" else 1e-6, False, n)
+    raw = y.view(torch.int16 if dtype == torch.bfloat16 else torch.int32).cpu().numpy()
+    return hashlib.sha256(raw.tobytes()).hexdigest()[:16]
+
+
+# SHA-256 (first 16 hex digits) of the rows kernel's outputs on fixed seeds at
+# the widths the light configurations send (the transformer's padded rows,
+# whole rows of 1020 and 1024, T5's RMSNorm), as the one-warp
+# instantiations gave them before rows of 1280 were added (NVIDIA H100 80GB
+# HBM3, torch 2.11.0+cu128, CUDA 12.8; the same on the tree before and after)
+ROWS_DIGESTS = {
+    "layer/256/255/bfloat16": "49f5b83d87287ec6",
+    "layer/512/510/bfloat16": "c8b2583512a48b65",
+    "layer/1024/1020/bfloat16": "aad5ce9fafa36ad1",
+    "layer/1020/1020/bfloat16": "27752fe4f687dc8a",
+    "layer/1024/1024/bfloat16": "a31008159ce32981",
+    "rms/1024/1024/bfloat16": "556b8c674a0ffa4b",
+    "layer/256/255/float32": "b1433d693d9810a2",
+    "layer/512/510/float32": "dd36f2ba59fcc3b6",
+    "layer/1024/1020/float32": "751348f69d638f3f",
+    "layer/1020/1020/float32": "ce4e2e0fe882407b",
+    "layer/1024/1024/float32": "3cc4a4861cea7d88",
+    "rms/1024/1024/float32": "68f03064054a8879"}
+
+
+def test_rows_of_1024_or_fewer_are_the_bytes_they_were(gen):
+    """Widening the rows kernel to 1280 leaves every narrower row's output
+    bit for bit as it was (ROWS_DIGESTS)."""
+    got = {}
+    for dtype in NORM_DTYPES:
+        for kind, width, n in (("layer", 256, 255), ("layer", 512, 510), ("layer", 1024, 1020),
+                               ("layer", 1020, 1020), ("layer", 1024, 1024),
+                               ("rms", 1024, 1024)):
+            gen.manual_seed(width + n)
+            got[f"{kind}/{width}/{n}/{str(dtype)[6:]}"] = _rows_digest(gen, kind, width, n, dtype)
+    assert got == ROWS_DIGESTS
+
+
 @pytest.mark.parametrize("kind,shape,groups", [("group", (2, 96, 33, 7), 32),
                                                ("group", (1, 128, 512, 64), 32),
                                                ("layer", (2, 301, 255), 0),
@@ -800,6 +877,7 @@ def test_norm_refuses_what_it_does_not_take(gen):
     x = torch.randn(2, 64, 10, device="cuda", generator=gen)
     w = torch.ones(64, device="cuda")
     before = {k: f.launches for k, f in NORM_COUNTERS.items()}
+    rows_before = {e: c.launches for e, c in norm.rows_launches.items()}
     with pytest.raises(TypeError):
         norm.group_norm(x.half(), 32, w, w, 1e-5)
     with pytest.raises(ValueError):
@@ -810,13 +888,17 @@ def test_norm_refuses_what_it_does_not_take(gen):
         norm.layer_norm(x, w, w, 1e-5)  # an affine of 64 over rows of 10
     with pytest.raises(ValueError):
         norm.rms_norm(x, w[:10].cpu(), 1e-6)
-    # rows wider than a warp holds
+    # rows wider than the rows kernel holds (1280)
     wide = torch.randn(2, 5, 1500, device="cuda", generator=gen)
-    with pytest.raises(ValueError, match="a warp holds"):
+    with pytest.raises(ValueError, match="the rows kernel holds"):
         norm.layer_norm(wide, torch.ones(1500, device="cuda"), None, 1e-5)
-    with pytest.raises(ValueError, match="a warp holds"):
-        norm.rms_norm(wide[..., :1025].contiguous(), torch.ones(1025, device="cuda"), 1e-6)
+    with pytest.raises(ValueError, match="the rows kernel holds"):
+        norm.rms_norm(wide[..., :1288].contiguous(), torch.ones(1288, device="cuda"), 1e-6)
+    with pytest.raises(ValueError, match="the rows kernel holds"):
+        norm.layer_norm(wide[..., :1288].contiguous(), torch.ones(1281, device="cuda"), None,
+                        1e-5, 1281)
     # more true features than the row holds
     with pytest.raises(ValueError, match="true features"):
         norm.layer_norm(x, torch.ones(11, device="cuda"), None, 1e-5, 11)
     assert {k: f.launches for k, f in NORM_COUNTERS.items()} == before
+    assert all(c.launches == rows_before[e] for e, c in norm.rows_launches.items())

@@ -136,11 +136,42 @@ def test_group_plan_at_the_paths_shapes():
 
 @pytest.mark.parametrize("n_rows,width,itemsize", [(131072, 255, 2), (4096, 255, 2),
                                                    (2048, 1024, 2), (64, 1020, 2),
-                                                   (5, 1024, 4), (1, 1, 2)])
+                                                   (5, 1024, 4), (1, 1, 2), (4096, 1280, 2),
+                                                   (1024, 1280, 4)])
 def test_rows_plan_fits_the_block(n_rows, width, itemsize):
     r = norm.rows_plan(n_rows, width, itemsize, 132)
     assert r >= 1 and (r * width <= norm.ROWS_SPAN_BYTES // itemsize or r == 1)
     assert r >= min(8, norm.ROWS_SPAN_BYTES // (width * itemsize))
+
+
+@pytest.mark.parametrize("width,held", [(1, 256), (256, 256), (257, 512), (512, 512),
+                                        (1020, 1024), (1024, 1024), (1025, 1280),
+                                        (1275, 1280), (1280, 1280)])
+def test_rows_of_up_to_1280_take_the_narrowest_instantiation_that_holds_them(width, held):
+    """TANGO's level-2 LayerNorms run on rows of 1280 (two warps a row);
+    rows of 1024 or fewer keep their one-warp instantiations."""
+    assert norm.ROWS_MAX_WIDTH == 1280
+    assert norm.rows_instantiation(width) == held
+    assert norm.rows_plan(4096, width, 2, 132) >= 8
+
+
+@pytest.mark.parametrize("width", [1281, 1288, 2048])
+def test_rows_wider_than_1280_are_refused(width):
+    """By the plan and by the wrapper's width check, before any launch."""
+    with pytest.raises(ValueError, match="the rows kernel holds"):
+        norm.rows_plan(16, width, 2, 132)
+    with pytest.raises(ValueError, match="the rows kernel holds"):
+        norm.rows_instantiation(width, "layer_norm")
+
+
+def test_rows_launches_are_counted_by_instantiation_and_kept_by_graphs():
+    """One counter a rows instantiation, each among the counters a graph's
+    capture restores and its replays add to (graphs.py)."""
+    from consistencytta_torch import graphs
+
+    assert sorted(norm.rows_launches) == list(norm.ROWS_WIDTHS)
+    counters = graphs._launch_counters()
+    assert all(any(c is r for c in counters) for r in norm.rows_launches.values())
 
 
 @pytest.mark.parametrize("fault", common.GROUP_FAULTS)

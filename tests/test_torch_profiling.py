@@ -130,6 +130,30 @@ def test_profile_stages_at_the_tiny_size(capsys):
                                                    out["graphs"]["profile"]]
 
 
+def test_profile_stages_takes_a_configuration_file(tmp_path, capsys, monkeypatch):
+    """An unguided UNet in the file (here as a benchmark configuration file
+    holds it, under "pipeline") is timed in the 18-step Heun CFG teacher's
+    calls: 35 UNet queries a call; the first line gives them and the rows
+    kernel's launches a call by instantiation (none on the CPU). One timed
+    call, to keep the test short."""
+    from consistencytta_torch.configs import PipelineConfig
+
+    monkeypatch.setattr(profile_stages, "ITERS", 1)
+    tiny = PipelineConfig.tiny().to_dict()
+    tiny["unet"]["guided"] = False
+    path = tmp_path / "teacher.json"
+    path.write_text(json.dumps({"name": "tiny-teacher", "pipeline": tiny}))
+    out = profile_stages.main(["--device", "cpu", "--config", str(path), "--batch", "1"])
+    first = json.loads(capsys.readouterr().out.splitlines()[0])
+    assert first["batch"] == 1 and first["unet_queries"] == out["unet_queries"] == 35
+    assert out["graphs"]["stage_times"]["unet"]["eager"] == 35 * 2
+    assert out["graphs"]["profile"]["unet"]["eager"] == 35 * 2
+    assert {int(k): v for k, v in first["norm_rows_launches"].items()} == {
+        256: 0, 512: 0, 1024: 0, 1280: 0}
+    loaded = profile_stages.load_config(str(path)).to_dict()
+    assert json.loads(json.dumps(loaded)) == json.loads(json.dumps(tiny))
+
+
 def test_profile_stages_kernel_share():
     profile = {"top_kernels": [
         {"name": "void mha_packed_kernel<1>(...)", "ms": 1.0, "launches": 4},

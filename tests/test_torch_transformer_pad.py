@@ -4,8 +4,9 @@ the CPU in float32, with the JAX module's parameters (biases and norm
 affines drawn off their init) loaded through `io/from_jax`.
 
 At heads / channels 5/256, 10/512 and 20/1024 (inner 255/510/1020, carried
-at 256/512/1024, head width 51 padded to 64) and 2/16 (aligned: nothing to
-pad): the output, the input's gradient and the gradient of every
+at 256/512/1024, head width 51 padded to 64), 2/16 (aligned: nothing to
+pad) and TANGO's full UNet's 5/320 and 20/1280 (64-wide heads, unpadded):
+the output, the input's gradient and the gradient of every
 published-shape parameter agree with the JAX module's to 1e-5 of their
 largest magnitude (float32, sums in another order: they read at most
 2e-6); the pad features are exact zeros after proj_in,
@@ -39,7 +40,7 @@ from consistencytta_torch.ops._packs import Pack
 from consistencytta_tpu.nn.attention import Transformer2D as JaxTransformer2D
 
 CROSS, TEXT, BATCH, HW = 24, 7, 2, (3, 4)
-CASES = [(5, 256), (10, 512), (20, 1024), (2, 16)]
+CASES = [(5, 256), (10, 512), (20, 1024), (2, 16), (5, 320), (20, 1280)]
 TOL = 1e-5  # of the largest magnitude
 GROUPS = 8
 
