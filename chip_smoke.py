@@ -8,8 +8,8 @@ source, in parallel, into `build/`), then runs thirteen phases, each printing
 JSON lines:
 
   env      card name and power limit (nvidia-smi), torch / CUDA versions,
-           kernel build seconds, and the attention, MRF, STFT, dilated-conv
-           and norm kernels' registers, spills and shared memory;
+           kernel build seconds, and the attention, MRF, STFT, dilated-conv,
+           norm and GEGLU kernels' registers, spills and shared memory;
   kernel   each kernel against its plain PyTorch version on the same inputs
            at the shapes the driven paths give it (bf16; batch 32 and 1 for
            the generate path, 16 and 8 for the train step, 4 and 2 for the
@@ -49,7 +49,12 @@ JSON lines:
            every distinct GroupNorm (+ SiLU), LayerNorm and RMSNorm call of a
            batch-32 generate call, held to 1 bf16 ulp of its plain float32
            version, with torch's own norm on the bf16 input as its library
-           call and a CUDA-graph device time. A kernel's summed bound is the sum of
+           call and a CUDA-graph device time. The GEGLU kernel
+           (csrc/geglu.cu) runs at every (M, N) of a batch-32 generate call,
+           of gen-b1 and of tango-b8, held bit for bit to its plain version
+           (the four PyTorch passes it replaced) against the tanh gelu and the
+           halves exchanged, with a CUDA-graph device time and no library
+           call. A kernel's summed bound is the sum of
            its shapes' bounds, each shape taken alone (not one roofline of
            the summed bytes and operations, which is lower where some shapes
            are bound by bytes and others by operations);
@@ -280,6 +285,11 @@ SERVE_PLACES = ["", " nearby", " far away", " at night"]
 NORM_COUNTERS = ("group_norm", "layer_norm", "rms_norm")  # ops/norm.py's launch counters
 MRF_LEVELS = 5  # the vocoder's MRF levels (len(HiFiGANConfig().upsample_rates))
 WIDE_LEVEL_LAUNCHES = 20  # K7 at a level wider than K3's: 18 convs, two layout passes
+# K8's (positions, half N, launches a UNet query) at UNet levels 0, 1, 2 and
+# the mid block: the light UNet's halves (1020 padded to 1024, then 2040 and
+# 4080, already multiples of 8), TANGO's
+GEGLU_LEVELS = ((4096, 1024, 5), (1024, 2040, 5), (256, 4080, 5), (64, 4080, 1))
+GEGLU_TANGO_LEVELS = ((4096, 1280, 5), (1024, 2560, 5), (256, 5120, 5), (64, 5120, 1))
 
 
 class NormCalls:
@@ -342,6 +352,12 @@ def mrf_launches(vocoder_calls: int, fused_levels: int) -> dict:
     the `fused_levels` narrowest levels, WIDE_LEVEL_LAUNCHES at each wider."""
     return {"fused_mrf_level": vocoder_calls * fused_levels,
             "wide_mrf_level": vocoder_calls * (MRF_LEVELS - fused_levels) * WIDE_LEVEL_LAUNCHES}
+
+
+def unet_launches(queries: int) -> dict:
+    """K1's and K8's launches in `queries` UNet queries: one of each a
+    transformer block, 16 a query (their backwards are the plain versions')."""
+    return {"flash_mha_packed": 16 * queries, "geglu": 16 * queries}
 
 
 def with_norms(expected: dict) -> dict:
@@ -429,7 +445,7 @@ def serve_phase(torch, config, serve_dir, reset_counters, read_counters, fused_l
     # for the batch's mels
     out = os.path.join(serve_dir, "stage2")
     queries = 1 + 2 * SERVE_TEACHER_STEPS - 1
-    expected = {"flash_mha_packed": 16 * queries, "flash_self_attention": 2,
+    expected = {**unet_launches(queries), "flash_self_attention": 2,
                 **mrf_launches(2, fused_levels), "stft_magnitude": 1, "dilated_conv1d": 0}
     res2, wall2, counts2 = run(["--use_edm", "--use_ema", "--query_teacher", "--num_teacher_steps",
                                 str(SERVE_TEACHER_STEPS), "--skip_eval", "--output_dir", out],
@@ -457,7 +473,7 @@ def serve_phase(torch, config, serve_dir, reset_counters, read_counters, fused_l
     eval_ckpt = write_eval_checkpoints(os.path.join(serve_dir, "ckpt"), seed=EVAL_SEED)
     eval_ckpt_s = time.perf_counter() - t0
     out1 = os.path.join(serve_dir, "stage1")
-    expected1 = {"flash_mha_packed": 16 * SERVE_STAGE1_STEPS, "flash_self_attention": 1,
+    expected1 = {**unet_launches(SERVE_STAGE1_STEPS), "flash_self_attention": 1,
                  **mrf_launches(1, fused_levels), "stft_magnitude": 2, "dilated_conv1d": 0}
     cwd = os.getcwd()
     os.chdir(serve_dir)
@@ -728,7 +744,7 @@ def eval_phase(torch, ctx, reset_counters, read_counters):
         # K4: one 512-point launch for the 32 generated files' mels and one for
         # the references' (one length, at most MEL_BATCH rows a launch)
         batches = -(-len(names) // MEL_BATCH)
-        expected = with_norms({"flash_mha_packed": 0, "flash_self_attention": 0,
+        expected = with_norms({**unet_launches(0), "flash_self_attention": 0,
                                **mrf_launches(0, 0), "stft_magnitude": 2 * batches,
                                "dilated_conv1d": 0})
         if counts != expected:
@@ -872,7 +888,7 @@ def fit_expected(stage, use_edm, accum, steps, val_batches, n=HEUN_STEPS, remat=
         per_micro, per_val = 3 + remat, n + 2
     micro = steps * accum
     decoder, vocoder = LOSS_DECODES[loss]
-    return {"flash_mha_packed": 16 * (micro * per_micro + val_batches * per_val),
+    return {**unet_launches(micro * per_micro + val_batches * per_val),
             "flash_self_attention": micro * (1 + decoder) + val_batches * (1 + 2 * ftvae),
             **mrf_launches(micro * vocoder, fused_levels),
             "stft_magnitude": micro + val_batches * (1 + ftvae), "dilated_conv1d": 0}
@@ -1189,7 +1205,7 @@ def inference_run(torch, phase, model, replay, vae, test, out_dir, fused_levels,
     torch.cuda.synchronize()
     infer_s = time.perf_counter() - t0
     counts = read_counters()
-    expected = with_norms({"flash_mha_packed": 16, "flash_self_attention": 1,
+    expected = with_norms({**unet_launches(1), "flash_self_attention": 1,
                            **mrf_launches(1, fused_levels), "stft_magnitude": 1,
                            "dilated_conv1d": 0})
     wavs = sorted(n for n in os.listdir(out_dir) if n.endswith(".wav"))
@@ -1546,9 +1562,10 @@ def ddp_rank(mesh, config, out_pattern):
     import torch
 
     from consistencytta_torch.ops import attention as att, mrf, norm, stft, dilated_conv as dconv
+    from consistencytta_torch.ops import geglu
     from consistencytta_torch.parallel import mesh as pm
 
-    counters = {"flash_mha_packed": att.flash_mha_packed,
+    counters = {"flash_mha_packed": att.flash_mha_packed, "geglu": geglu.geglu,
                 "flash_self_attention": att.flash_self_attention,
                 "fused_mrf_level": mrf.fused_mrf_level, "wide_mrf_level": mrf.wide_mrf_level,
                 "stft_magnitude": stft.stft_magnitude_cuda,
@@ -1680,7 +1697,7 @@ def ddp_phase(torch, config, dev, out_dir):
             torch.cat([r["positions"] for r in recs]), every))
         merged[fault] = readings
     sound = merged["sound"]
-    expected = {"flash_mha_packed": 16 * 4 * DDP_STEPS, "flash_self_attention": DDP_STEPS,
+    expected = {**unet_launches(4 * DDP_STEPS), "flash_self_attention": DDP_STEPS,
                 **mrf_launches(0, 0), "stft_magnitude": DDP_STEPS, "dilated_conv1d": 0}
     per_rank = [{"launches": r["sound"]["launches"],
                  "expected_launches": {**expected, **r["sound"]["norm_implied"]},
@@ -1768,11 +1785,11 @@ def profile_phase(torch, pipe, fused_levels, norm_per_call, reset_counters, read
     # generate calls: the stage timing's warm-up and timed ones, then the
     # profile's warm-up and traced one
     calls = 1 + ps.ITERS + 2
-    expected = {"flash_mha_packed": 16 * calls, "flash_self_attention": calls,
+    expected = {**unet_launches(calls), "flash_self_attention": calls,
                 **mrf_launches(calls, fused_levels), "stft_magnitude": 0,
                 "dilated_conv1d": 0, **{k: n * calls for k, n in norm_per_call.items()}}
     in_trace = {"K1": 16, "K2": 1, "K3": fused_levels,
-                "K7": mrf_launches(1, fused_levels)["wide_mrf_level"]}
+                "K7": mrf_launches(1, fused_levels)["wide_mrf_level"], "GEGLU": 16}
     line = {
         "phase": "profile", "batch": s.z.shape[0], "stages_ms": stages,
         "busy_share": profile["busy_share"], "window_ms": profile["window_ms"],
@@ -1819,7 +1836,7 @@ def bench_phase(torch, fused_levels, reset_counters, read_counters, smi):
     student = 1 + bench.ITERS["cuda"]
     teacher = (1 + bench.TEACHER_ITERS["cuda"]) * (2 * bench.TEACHER_STEPS - 1)
     calls = student + 1 + bench.TEACHER_ITERS["cuda"]  # each call decodes once
-    expected = with_norms({"flash_mha_packed": 16 * (student + teacher),
+    expected = with_norms({**unet_launches(student + teacher),
                            "flash_self_attention": calls,
                            **mrf_launches(calls, fused_levels), "stft_magnitude": 0,
                            "dilated_conv1d": 0})
@@ -1857,7 +1874,7 @@ def main() -> None:
         from consistencytta_torch.ops import _build
         from consistencytta_torch.ops import attention as att
         from consistencytta_torch.ops import dilated_conv as dconv
-        from consistencytta_torch.ops import mrf, norm, schedulers, stft
+        from consistencytta_torch.ops import geglu, mrf, norm, schedulers, stft
         from consistencytta_torch.ops._packs import Pack
         from consistencytta_torch.text.tokenizer import HashTokenizer, tokenize_with_uncond
         from consistencytta_torch.tools import mrf_cases as mc
@@ -1895,6 +1912,7 @@ def main() -> None:
         "dilated_conv_ptxas": _build.resources("dilated_conv"),
         "norm_ptxas": _build.resources("norm"),
         "conv_nlc_ptxas": _build.resources("conv_nlc"),
+        "geglu_ptxas": _build.resources("geglu"),
     })
 
     # -- kernels against their plain versions ---------------------------------
@@ -2411,6 +2429,38 @@ def main() -> None:
         del x, w, b, got, want, mutants
         torch.cuda.empty_cache()
 
+    # K8, the GEGLU kernel (csrc/geglu.cu): the `proj` output [M, 2N] of
+    # every GEGLU of a 1-NFE generate call at batch 32 (M = 32 x the level's
+    # positions, N the light UNet's half as it runs), weighted by its launches a
+    # call, then batch 1 (gen-b1) and the full TANGO UNet's widths at the CFG
+    # batch of 16 (tango-b8), which weigh nothing in the sums. Held bit for
+    # bit to the plain version (the four PyTorch passes the module ran
+    # before the kernel); the faults: the tanh gelu and the halves
+    # exchanged, each also given in bf16 ulps of the plain output. No
+    # library call computes it; the bound: one bf16 read of y and one write
+    # of the product at 3.35 TB/s; device_ms: a replayed CUDA graph's time.
+    geglu_cases = ([("", 32, level, None) for level in GEGLU_LEVELS]
+                   + [("gen-b1 ", 1, level, 0) for level in GEGLU_LEVELS]
+                   + [("tango-b8 ", 16, level, 0) for level in GEGLU_TANGO_LEVELS])
+    for cell, b, (px, n, per_call), weight in geglu_cases:
+        m = b * px
+        y = (3.0 * torch.randn(m, 2 * n, device=dev, generator=gen)).bfloat16()
+        kern = lambda: geglu.geglu(y)
+        plain = lambda: geglu.geglu_plain(y)
+        got, want = launch(geglu.geglu, kern), plain()
+        h, gate = y.chunk(2, dim=-1)
+        mutants = {"tanh_gelu": h * F.gelu(gate.float(), approximate="tanh").to(h.dtype),
+                   "halves_exchanged": gate * F.gelu(h.float()).to(h.dtype)}
+        device_ms, graph_error = graph_ms(kern, max(2, min(20, int(2**30 // y.numel()))))
+        iters = max(3, int(2e8 // y.numel()))
+        record("geglu", f"{cell}M={m} N={n}", got, want, 0.0, mutants,
+               cuda_ms(torch, kern, iters), cuda_ms(torch, plain, 3), None, 0.0,
+               3 * m * n * y.element_size(), per_call, weight=weight,
+               mutant_ulps={f: nb.ulps(bad, want) for f, bad in mutants.items()},
+               device_ms=device_ms, device_ms_error=graph_error)
+        del y, h, gate, got, want, mutants
+        torch.cuda.empty_cache()
+
     # -- main path --------------------------------------------------------------
     config = PipelineConfig()
     t0 = time.perf_counter()
@@ -2427,7 +2477,7 @@ def main() -> None:
         g = torch.Generator(device=dev).manual_seed(seed)
         return (ids, mask, uids, umask), g
 
-    counters = {"flash_mha_packed": att.flash_mha_packed,
+    counters = {"flash_mha_packed": att.flash_mha_packed, "geglu": geglu.geglu,
                 "flash_self_attention": att.flash_self_attention,
                 "fused_mrf_level": mrf.fused_mrf_level, "wide_mrf_level": mrf.wide_mrf_level,
                 "stft_magnitude": stft.stft_magnitude_cuda,
@@ -2473,7 +2523,7 @@ def main() -> None:
         fail(f"the vocoder has {len(voc.upsample_rates)} MRF levels, the tables {MRF_LEVELS}")
     fused_levels = sum(voc.upsample_initial_channel // 2 ** (i + 1) <= FUSE_MAX_CHANNELS
                        for i in range(len(voc.upsample_rates)))
-    expected = {"flash_mha_packed": 16 * calls, "flash_self_attention": calls,
+    expected = {**unet_launches(calls), "flash_self_attention": calls,
                 **mrf_launches(calls, fused_levels), "stft_magnitude": 0, "dilated_conv1d": 0,
                 **{k: n * calls for k, n in norm_per_call.items()}}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
@@ -2621,7 +2671,7 @@ def main() -> None:
     # interval, two teacher queries on each later one, one for the last step.
     unet_queries = n_train_steps * 4 + (4 + 2 * (HEUN_STEPS - 2) + 1)
     calls_t = n_train_steps + 1
-    train_expected = with_norms({"flash_mha_packed": 16 * unet_queries,
+    train_expected = with_norms({**unet_launches(unet_queries),
                                  "flash_self_attention": calls_t, **mrf_launches(0, 0),
                                  "stft_magnitude": calls_t, "dilated_conv1d": 0})
     if train_launches != train_expected:
@@ -2781,6 +2831,8 @@ def main() -> None:
                            "consistencytta_tpu/ops/pallas_blockconv.py:204"),
         "norm": ("consistencytta_torch/csrc/norm.cu",
                  "none: XLA fuses consistencytta_tpu/nn/layers.py's norms"),
+        "geglu": ("consistencytta_torch/csrc/geglu.cu",
+                  "none: XLA fuses consistencytta_tpu/nn/attention.py's GEGLU"),
     }
     per = {
         "stft_magnitude": f"N = 1024: times per train step at micro-batch {TRAIN_BATCH}",

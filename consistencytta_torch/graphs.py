@@ -182,12 +182,12 @@ def _clone(out):
 def _launch_counters() -> tuple:
     global _counters
     if _counters is None:
-        from consistencytta_torch.ops import attention, dilated_conv, mrf, norm, stft
+        from consistencytta_torch.ops import attention, dilated_conv, geglu, mrf, norm, stft
 
         _counters = (attention.flash_mha_packed, attention.flash_self_attention,
                      mrf.fused_mrf_level, mrf.wide_mrf_level, stft.stft_magnitude_cuda,
                      dilated_conv.dilated_conv1d, norm.group_norm, norm.layer_norm, norm.rms_norm,
-                     *norm.rows_launches.values())
+                     *norm.rows_launches.values(), geglu.geglu)
     return _counters
 
 

@@ -49,6 +49,7 @@ from torch import nn
 from consistencytta_torch.nn.layers import GroupNorm, LayerNorm
 from consistencytta_torch.ops._packs import Pack
 from consistencytta_torch.ops.attention import flash_mha_packed, head_pad
+from consistencytta_torch.ops.geglu import geglu
 # ALIGN elements are 16 bytes of bf16, the row alignment cuBLAS's Hopper GEMMs
 # take; the LayerNorms take rows padded to it
 from consistencytta_torch.ops.norm import PAD_ALIGN as ALIGN
@@ -161,8 +162,10 @@ class Attention(nn.Module):
 
 
 class GEGLU(nn.Module):
-    """x W -> (h, gate) -> h * gelu(gate), exact gelu in float32; each half
-    zero-padded to aligned(dim_out) features."""
+    """x W -> (h, gate) -> h * gelu(gate), exact gelu in float32 rounded to
+    the input's dtype before the product (`ops.geglu.geglu`: one kernel
+    launch on the card); each half zero-padded to aligned(dim_out)
+    features."""
 
     def __init__(self, dim: int, dim_out: int):
         super().__init__()
@@ -181,8 +184,7 @@ class GEGLU(nn.Module):
             _pad_heads(b[None], 2, half, out, 1)[0]))
 
     def forward(self, x):
-        h, gate = F.linear(x, *self._weights(x.shape[-1])).chunk(2, dim=-1)
-        return h * F.gelu(gate.float()).to(h.dtype)
+        return geglu(F.linear(x, *self._weights(x.shape[-1])))
 
 
 class FeedForward(nn.Module):

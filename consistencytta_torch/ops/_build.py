@@ -34,7 +34,7 @@ FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("flash_attention", "mrf", "stft", "dilated_conv", "norm", "conv_nlc")
+SOURCES = ("flash_attention", "mrf", "stft", "dilated_conv", "norm", "conv_nlc", "geglu")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

@@ -19,6 +19,12 @@ float32 version: 1 ulp in bf16 (each side rounds once), half a bf16 ulp in
 float32 (float32 sums in another order); the reasons and the planted
 faults it rejects are in consistencytta_torch/tools/norm_cases.py.
 
+The GEGLU kernel (bf16 in and out) computes what the four PyTorch passes
+it replaced compute, the float32 gelu rounded to bf16 before the product,
+and is held to them bit for bit (CUDA 12.9's nvcc contracts the gelu as
+the card's PyTorch build does); the tanh-approximate gelu and the halves
+exchanged move the output by many bf16 steps.
+
 The STFT magnitude (filters of 1024 and 512 samples) is float32 in and out
 and is held to float32 grade: the largest error at most 1e-5 of the output's
 largest magnitude (a float32 FFT and a float32 product of 1024 terms differ
@@ -27,15 +33,17 @@ single bf16 or TF32 pass (1e-3 to 1e-4 of it), zero padding or a dropped
 window tail all fail.
 """
 
+import ctypes
 import hashlib
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from consistencytta_torch.configs import STFTConfig
 from consistencytta_torch.ops import attention as ops
 from consistencytta_torch.ops import dilated_conv as dc
-from consistencytta_torch.ops import mrf, norm, stft
+from consistencytta_torch.ops import geglu, mrf, norm, stft
 from consistencytta_torch.ops._packs import Pack
 from consistencytta_torch.tools import mrf_cases as mc
 from consistencytta_torch.tools import norm_cases as nc
@@ -902,3 +910,137 @@ def test_norm_refuses_what_it_does_not_take(gen):
         norm.layer_norm(x, torch.ones(11, device="cuda"), None, 1e-5, 11)
     assert {k: f.launches for k, f in NORM_COUNTERS.items()} == before
     assert all(c.launches == rows_before[e] for e, c in norm.rows_launches.items())
+
+
+# -- the GEGLU kernel ------------------------------------------------------------
+
+# (M, N) of every GEGLU the cells send: N the half at UNet levels 0, 1, 2 and
+# the mid block (the light UNet's 1024 (1020 padded) / 2040 / 4080, TANGO's
+# 1280 / 2560 / 5120; 2048 and 4096 besides), M = batch x the level's 4096 /
+# 1024 / 256 / 64 positions at the UNet batches 1 (gen-b1), 16 (teacher-b8,
+# tango-b8) and 32 (gen-b32)
+GEGLU_LEVELS = ((4096, 1024, 1280), (1024, 2040, 2048, 2560), (256, 4080, 4096, 5120),
+                (64, 4080, 4096, 5120))
+GEGLU_CASES = sorted({(b * px, n) for b in (1, 16, 32) for px, *ns in GEGLU_LEVELS for n in ns})
+# M x N / 8 not a whole number of the kernel's blocks (512 vectors), and the smallest N
+GEGLU_RAGGED = [(77, 1024), (3, 5120), (1, 8), (4099, 1280)]
+
+
+def _geglu_input(gen, m, n):
+    return (3.0 * torch.randn(m, 2 * n, device="cuda", generator=gen)).bfloat16()
+
+
+def _bf16_steps(a, b):
+    """The largest distance between a and b in representable bf16 steps."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -32768 - i, i)
+    return (ordered(a) - ordered(b)).abs().max().item()
+
+
+def _geglu_check(gen, m, n):
+    y = _geglu_input(gen, m, n)
+    before = geglu.geglu.launches
+    got = geglu.geglu(y)
+    torch.cuda.synchronize()
+    assert geglu.geglu.launches == before + 1
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16 and got.is_contiguous()
+    want = geglu.geglu_plain(y)
+    return y, got, want
+
+
+@pytest.mark.parametrize("m,n", GEGLU_CASES + GEGLU_RAGGED)
+def test_geglu_is_the_plain_version(gen, m, n):
+    """The kernel against the four PyTorch passes it replaced, on the card:
+    bit for bit."""
+    _, got, want = _geglu_check(gen, m, n)
+    assert torch.equal(got, want)
+
+
+def test_geglu_of_every_bf16_gate_is_torchs_gelu(gen):
+    """h = 1 and each of the 65,280 finite bf16 gates: the kernel's gelu,
+    rounded to bf16, is torch's float32 gelu rounded to bf16, bit for bit."""
+    every = torch.arange(-32768, 32768, dtype=torch.int32, device="cuda").to(torch.int16)
+    gate = every.view(torch.bfloat16)
+    gate = gate[torch.isfinite(gate.float())]
+    gate = gate[:gate.numel() // 8 * 8].view(-1, 8)
+    got = geglu.geglu(torch.cat([torch.ones_like(gate), gate], dim=1).contiguous())
+    assert gate.numel() == 65_280
+    assert torch.equal(got, F.gelu(gate.float()).bfloat16())
+
+
+def test_geglu_tolerance_rejects_planted_faults(gen):
+    """The tanh-approximate gelu and the halves exchanged each move the
+    output by many bf16 steps."""
+    y, got, _ = _geglu_check(gen, 4096, 1024)
+    h, gate = y.chunk(2, dim=-1)
+    tanh = h * F.gelu(gate.float(), approximate="tanh").to(h.dtype)
+    swapped = gate * F.gelu(h.float()).to(h.dtype)
+    for fault in (tanh, swapped):
+        assert _bf16_steps(got, fault) > 1
+
+
+def test_geglu_refuses_what_it_does_not_take(gen):
+    y = _geglu_input(gen, 64, 1024)
+    longer = torch.empty(y.numel() + 1, device="cuda", dtype=y.dtype)
+    misaligned = longer[1:].view(y.shape)
+    before = geglu.geglu.launches
+    for bad, error in ((y.float(), TypeError), (y[:, :2040].contiguous(), ValueError),
+                       (y.t().contiguous().t(), ValueError), (misaligned, ValueError)):
+        with pytest.raises(error):
+            geglu.geglu(bad)
+    assert geglu.geglu.launches == before
+
+
+def test_geglu_writes_nothing_outside_its_output(gen):
+    y = _geglu_input(gen, 77, 1024)
+    buffer = torch.full((77 * 1024 + 2 * 4096,), -7.0, device="cuda", dtype=torch.bfloat16)
+    out = buffer[4096:4096 + 77 * 1024].view(77, 1024)
+    fn = geglu._build.load("geglu").geglu_fwd
+    fn.restype = ctypes.c_int
+    code = fn(ctypes.c_void_p(y.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+              ctypes.c_longlong(77), ctypes.c_int(1024), geglu._build.stream_ptr(y.device))
+    torch.cuda.synchronize()
+    assert code == 0
+    assert (buffer[:4096] == -7.0).all() and (buffer[4096 + 77 * 1024:] == -7.0).all()
+    assert torch.equal(out, geglu.geglu(y))
+
+
+def test_geglu_capture_and_replay_equal_the_eager_call(gen):
+    y = _geglu_input(gen, 16 * 256, 4096)
+    eager = geglu.geglu(y)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        geglu.geglu(y)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = geglu.geglu(y)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(static, eager)
+    y.copy_(y.flip(0))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(static, geglu.geglu(y))
+
+
+def test_geglu_gradient_under_autocast_is_the_plain_gradient(gen):
+    """As the student's backward takes it: the `proj` output of a linear
+    that requires grad, under autocast; the forward launches the kernel and
+    the gradient is autograd through the plain version, bit for bit."""
+    x = torch.randn(2, 256, 512, device="cuda", generator=gen)
+    w = (0.05 * torch.randn(2 * 2048, 512, device="cuda", generator=gen)).requires_grad_()
+    g = torch.randn(2, 256, 2048, device="cuda", generator=gen).bfloat16()
+
+    def grad(fn):
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            out = fn(F.linear(x, w))
+        return out, torch.autograd.grad(out, w, g)[0]
+
+    before = geglu.geglu.launches
+    out, got = grad(geglu.geglu)
+    assert geglu.geglu.launches == before + 1
+    want_out, want = grad(geglu.geglu_plain)
+    assert torch.equal(out, want_out) and torch.equal(got, want)

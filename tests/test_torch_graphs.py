@@ -15,7 +15,8 @@ around a replay and their events bracket its kernels; after weights change
 in place (a load, an update of the vocoder's or the UNet's), one call runs
 eagerly and remakes the kernel-layout copies in their storage, and the
 replays after it equal eager calls; the graph and launch counters read what
-the calls imply, and every norm of a call launches the norm kernel; a UNet's
+the calls imply, every norm of a call launches the norm kernel and every
+GEGLU of a UNet query the GEGLU kernel (16 a query); a UNet's
 capture makes none of the transformer's padded copies, and a traced UNet query
 launches none of cuBLAS's unaligned GEMM fallbacks, which one GEMM on the
 transformer's unpadded width does. The file imports nothing of JAX:
@@ -209,12 +210,12 @@ def _stage_calls(p, batch, length, seed=0):
 
 
 def _launches():
-    from consistencytta_torch.ops import attention, mrf
+    from consistencytta_torch.ops import attention, geglu, mrf
 
     return {"flash_mha_packed": attention.flash_mha_packed.launches,
             "flash_self_attention": attention.flash_self_attention.launches,
             "fused_mrf_level": mrf.fused_mrf_level.launches,
-            "wide_mrf_level": mrf.wide_mrf_level.launches}
+            "wide_mrf_level": mrf.wide_mrf_level.launches, "geglu": geglu.geglu.launches}
 
 
 @pytest.mark.cuda
@@ -373,7 +374,7 @@ def test_replay_reads_weights_loaded_in_place(card, stage):
 def test_counters_read_what_the_calls_imply(card):
     text = _text(card.config, 3, 21, 0)  # a shape no other test calls
     per_call = {"flash_mha_packed": 16, "flash_self_attention": 1, "fused_mrf_level": 3,
-                "wide_mrf_level": 40}
+                "wide_mrf_level": 40, "geglu": 16}
     utils.reset_graph_counts()
     start = _launches()
     for i, (event, ctx) in enumerate((("captures", None), ("replays", None),
@@ -408,6 +409,24 @@ def test_every_norm_of_a_call_launches_the_norm_kernel(card):
             with ctx:
                 _generate(card, text, i)
         assert [f.launches - n for f, n in zip(counters, start)] == [85, 48, 49]
+
+
+@pytest.mark.cuda
+def test_unet_query_launches_the_geglu_kernel_once_a_geglu(card):
+    """Every GEGLU of a UNet query is one launch of the GEGLU kernel
+    (ops/geglu.py), 16 a query, captured, replayed or eager; at the
+    teacher's batch of 16 the replay equals the eager query bit for bit."""
+    from consistencytta_torch.ops import geglu
+
+    module, args = _stage_calls(card, 16, 23)["unet"]  # a shape no other test calls
+    with torch.no_grad():
+        outs = []
+        for ctx in (contextlib.nullcontext(), contextlib.nullcontext(), graphs.eager()):
+            before = geglu.geglu.launches
+            with ctx:
+                outs.append(module(*args))
+            assert geglu.geglu.launches == before + 16
+    assert torch.equal(outs[0], outs[2]) and torch.equal(outs[1], outs[2])
 
 
 @pytest.mark.cuda

@@ -119,7 +119,7 @@ def test_profile_stages_at_the_tiny_size(capsys):
     profile = out["profile"]
     assert profile["kernels"] == 0 and profile["busy_share"] == 0  # no card, no kernels
     assert profile["window_ms"] > 0 and "trace" not in profile
-    assert set(out["kernels_ms"]) == {"K1", "K2", "K3", "K7", "unaligned_gemm"}
+    assert set(out["kernels_ms"]) == {"K1", "K2", "K3", "K7", "GEGLU", "unaligned_gemm"}
     # on the CPU every stage call runs eagerly: the timed calls and their
     # warm-up, then the traced call and its warm-up
     stages = ("t5", "unet", "vae_decode", "vocoder")
@@ -162,6 +162,7 @@ def test_profile_stages_kernel_share():
         {"name": "void ctta_conv_nlc_kernel<256>(...)", "ms": 20.0, "launches": 36},
         {"name": "void ctta_conv_nlc_enter_kernel(...)", "ms": 0.5, "launches": 2},
         {"name": "void ctta_conv_nlc_leave_kernel(...)", "ms": 0.25, "launches": 2},
+        {"name": "void ctta_geglu_kernel(uint4 const*, ...)", "ms": 1.25, "launches": 16},
         {"name": "cutlass_gemm", "ms": 9.0, "launches": 100},
         {"name": "void cutlass::Kernel2<cutlass_75_tensorop_bf16_s1688gemm_bf16_128x128_32x1_nn"
                  "_align1>(...)", "ms": 3.0, "launches": 7},
@@ -173,7 +174,7 @@ def test_profile_stages_kernel_share():
     assert profile_stages.kernel_share(profile) == {
         "K1": {"ms": 1.5, "launches": 16}, "K2": {"ms": 0, "launches": 0},
         "K3": {"ms": 2.0, "launches": 3}, "K7": {"ms": 20.75, "launches": 40},
-        "unaligned_gemm": {"ms": 3.25, "launches": 9}}
+        "GEGLU": {"ms": 1.25, "launches": 16}, "unaligned_gemm": {"ms": 3.25, "launches": 9}}
 
 
 def test_bench_prints_one_line_with_the_jax_benchs_keys(capsys):
